@@ -1,0 +1,61 @@
+// Shared pieces of the NDSC codec kernels (fwht.cu, quantpack.cu,
+// quantencode.cu): the row tiling and the in-shared-memory FWHT.
+//
+// Bitwise contract with the plain versions (repro_torch/kernels/ref.py):
+// every float operation on the payload path is a round-to-nearest
+// intrinsic (__fadd_rn, __fsub_rn, __fmul_rn, __fdiv_rn), so nvcc cannot
+// contract a multiply and an add into an fma, and division is correctly
+// rounded. The FWHT keeps the radix-2 order of ref.fwht (pair i with i+h
+// for h = 1, 2, 4, ...) and its single final multiply by f32(1/sqrt(N)).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace ndsc {
+
+constexpr int kThreads = 256;
+// A block holds max(1, kTileFloats / n) rows of n floats in shared memory:
+// 8 KB for n <= 2048, one 32 KB row at the largest n = 8192.
+constexpr int kTileFloats = 2048;
+constexpr int kMaxN = 8192;
+
+__host__ __device__ inline int rows_per_block(int n) {
+  return n >= kTileFloats ? 1 : kTileFloats / n;
+}
+
+inline int log2_int(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
+inline bool is_pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
+
+// In place, normalized FWHT of `nrows` rows of length n = 2^log2n held in
+// shared memory. All threads of the block must call it; it synchronizes
+// before the first stage and after the final scaling.
+__device__ inline void fwht_tile(float* sm, int nrows, int log2n,
+                                 float inv_sqrt_n) {
+  const int n = 1 << log2n;
+  const int pairs_per_row = n >> 1;
+  const int pairs = nrows * pairs_per_row;
+  for (int h = 1; h < n; h <<= 1) {
+    __syncthreads();
+    for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
+      const int row = p >> (log2n - 1);
+      const int j = p & (pairs_per_row - 1);
+      const int i = row * n + ((j & ~(h - 1)) << 1) + (j & (h - 1));
+      const float a = sm[i];
+      const float b = sm[i + h];
+      sm[i] = __fadd_rn(a, b);
+      sm[i + h] = __fsub_rn(a, b);
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nrows * n; e += blockDim.x)
+    sm[e] = __fmul_rn(sm[e], inv_sqrt_n);
+  __syncthreads();
+}
+
+}  // namespace ndsc

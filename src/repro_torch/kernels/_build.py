@@ -1,0 +1,111 @@
+"""Build and load the CUDA sources of `repro_torch/csrc/` (route: nvcc into
+plain-C shared libraries, bound with ctypes).
+
+Each `csrc/<name>.cu` becomes `build/repro_torch/lib<name>-<hash>.so` under
+the checkout's root; the hash covers the sources, the header and the flags,
+so an edited source is rebuilt and an unchanged one is reused. All missing
+libraries are compiled at once, one `nvcc` process per source. Nothing is
+built or loaded when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("fwht", "quantpack", "quantencode")
+HEADERS = ("ndsc_common.cuh",)
+# No --use_fast_math: the payload path relies on IEEE rounding.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # name: (function, argtypes)
+    "fwht": ("ndsc_fwht",
+             [_P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_float, _P]),
+    "quantpack": ("ndsc_unpack_dequant",
+                  [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, _P]),
+    "quantencode": ("ndsc_encode",
+                    [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                     ctypes.c_int, ctypes.c_float, ctypes.c_int, _P]),
+}
+
+_loaded: dict = {}
+build_log: dict = {}          # name -> nvcc's output (ptxas register report)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (f"{name}.cu",) + HEADERS:
+        h.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names=SOURCES) -> float:
+    """Compile every library of `names` not yet built, all in parallel.
+    Returns the seconds spent; raises with nvcc's output on a failure."""
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name in todo:
+        out = _lib_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        build_log[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode})\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str):
+    """The loaded ctypes function of library `name` (building on first use)."""
+    if name not in _loaded:
+        build((name,))
+        fn_name, argtypes = _SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(_lib_path(name))), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    return _loaded[name]
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,93 @@
+"""Dispatch of the codec ops by the tensor's device.
+
+A CPU tensor runs the plain PyTorch version (`kernels.ref`); a CUDA tensor
+runs the hand-written kernel, or raises where the kernel refuses the input
+(N > 8192, a dtype it does not take). There is no switch and no fallback:
+unlike `repro.kernels.ops`, nothing here quietly swaps in the reference on
+the accelerator. Each CUDA wrapper counts its launches (`launch_counts`).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.fwht import fwht_cuda
+from repro_torch.kernels.quantencode import encode_cuda, encode_ef_cuda
+from repro_torch.kernels.quantpack import (quantize_pack_cuda,
+                                           unpack_dequant_cuda)
+
+KERNELS = {"encode": encode_cuda, "encode_ef": encode_ef_cuda,
+           "unpack_dequant": unpack_dequant_cuda, "fwht": fwht_cuda}
+
+
+def launch_counts() -> dict:
+    """Launches of each CUDA kernel wrapper since the last reset."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def _opt(t):
+    return None if t is None else t.contiguous()
+
+
+def fwht(x: torch.Tensor) -> torch.Tensor:
+    """Normalized Walsh–Hadamard transform along the last axis."""
+    if _on_cpu(x):
+        return _ref.fwht(x)
+    return fwht_cuda(x.contiguous())
+
+
+def unrotate(x: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
+    """Inverse of the frame rotation H·(D·x): D·(H·x)."""
+    return fwht(x) * signs
+
+
+def quantize_pack(x: torch.Tensor, scale: torch.Tensor,
+                  bits: int) -> torch.Tensor:
+    """Uniform quantize + bit-pack to int32 words (bits ∈ {1,2,4,8})."""
+    if _on_cpu(x):
+        return _ref.quantize_pack(x, scale, bits)
+    return quantize_pack_cuda(x, scale, bits)
+
+
+def unpack_dequant(words: torch.Tensor, scale: torch.Tensor, bits: int,
+                   n: int) -> torch.Tensor:
+    """Unpack + dequantize (inverse of quantize_pack)."""
+    if _on_cpu(words):
+        return _ref.unpack_dequant(words, scale, bits, n)
+    scale = scale.expand(tuple(words.shape[:-1]) + (1,))
+    return unpack_dequant_cuda(words.contiguous(), scale.contiguous(), bits, n)
+
+
+def encode(chunks: torch.Tensor, signs: torch.Tensor, bits: int, *,
+           dither: torch.Tensor | None = None,
+           mask: torch.Tensor | None = None) -> tuple:
+    """Fused codec encode: (words, scale), bitwise equal either way."""
+    if _on_cpu(chunks):
+        return _ref.encode(chunks, signs, bits, dither=dither, mask=mask)
+    return encode_cuda(chunks.contiguous(), signs.contiguous(), bits,
+                       dither=_opt(dither), mask=_opt(mask))
+
+
+def encode_ef(chunks: torch.Tensor, signs: torch.Tensor, bits: int, *,
+              dither: torch.Tensor | None = None,
+              mask: torch.Tensor | None = None,
+              rescale: float | None = None,
+              residual_dtype=None) -> tuple:
+    """`encode` plus the error-feedback residual u − D(E(u)).
+    residual_dtype=None means f32."""
+    rdt = torch.float32 if residual_dtype is None else residual_dtype
+    if _on_cpu(chunks):
+        return _ref.encode_ef(chunks, signs, bits, dither=dither, mask=mask,
+                              rescale=rescale, residual_dtype=rdt)
+    return encode_ef_cuda(chunks.contiguous(), signs.contiguous(), bits,
+                          dither=_opt(dither), mask=_opt(mask),
+                          rescale=rescale, residual_dtype=rdt)

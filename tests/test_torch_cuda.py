@@ -1,0 +1,79 @@
+"""The CUDA kernels of repro_torch vs their plain PyTorch versions, on the
+card. Every test here is marked `cuda` and skips without a GPU and nvcc.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine without them (the repo's conftest imports JAX; skip it there):
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Payloads (words, scale bits), the FWHT and unpack_dequant must be bitwise
+equal to the plain versions; the EF residual within 4e-6 abs in f32 and
+4e-3 in bf16, the bounds of the JAX package's EF tests."""
+import pytest
+import torch
+
+from repro_torch.kernels import _build, ops, ref
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    try:
+        _build._nvcc()
+    except RuntimeError:
+        pytest.skip("needs nvcc to build the kernels")
+    return torch.device("cuda")
+
+
+def _inputs(rows, n, bits, seed, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn(rows, n, generator=g, device=dev)
+    signs = torch.where(torch.rand(n, generator=g, device=dev) < 0.5,
+                        1.0, -1.0)
+    delta = 2.0 / 2 ** bits
+    dither = (torch.rand(rows, n, generator=g, device=dev) - 0.5) * delta
+    mask = (torch.rand(rows, 1, generator=g, device=dev) < 0.6).float()
+    return x, signs, dither, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [32, 256, 8192])
+@pytest.mark.parametrize("mode", ["det", "dither", "mask", "rescale"])
+def test_cuda_kernels_match_plain(cuda, bits, n, mode):
+    x, signs, dither, mask = _inputs(37, n, bits, n + bits, cuda)
+    d = dither if mode in ("dither", "rescale") else None
+    m = mask if mode in ("mask", "rescale") else None
+    rescale = 0.6 if mode == "rescale" else None
+    kw, ks = ops.encode(x, signs, bits, dither=d, mask=m)
+    rw, rs = ref.encode(x, signs, bits, dither=d, mask=m)
+    assert torch.equal(kw, rw)
+    assert torch.equal(ks.view(torch.int32), rs.view(torch.int32))
+    for rdt, tol in ((torch.float32, 4e-6), (torch.bfloat16, 4e-3)):
+        kw2, ks2, kr = ops.encode_ef(x, signs, bits, dither=d, mask=m,
+                                     rescale=rescale, residual_dtype=rdt)
+        _, _, rr = ref.encode_ef(x, signs, bits, dither=d, mask=m,
+                                 rescale=rescale, residual_dtype=rdt)
+        assert torch.equal(kw2, rw) and torch.equal(ks2, rs)
+        assert float((kr - rr).abs().max()) <= tol
+    assert torch.equal(ops.unpack_dequant(kw, ks, bits, n),
+                       ref.unpack_dequant(kw, ks, bits, n))
+    assert torch.equal(ops.fwht(x), ref.fwht(x))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_launch_counts_and_refusals(cuda):
+    ops.reset_launch_counts()
+    x = torch.randn(4, 64, device=cuda)
+    ops.unrotate(ops.fwht(x), torch.ones(64, device=cuda))
+    assert ops.launch_counts()["fwht"] == 2
+    with pytest.raises(ValueError, match="8192"):
+        ops.fwht(torch.zeros(2, 16384, device=cuda))
+    with pytest.raises(ValueError):
+        ops.encode(torch.zeros(2, 64, device=cuda, dtype=torch.float64),
+                   torch.ones(64, device=cuda), 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.quantize_pack(x, torch.ones(4, 1, device=cuda), 4)
