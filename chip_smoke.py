@@ -2,14 +2,27 @@
 
     python3 chip_smoke.py
 
-Phases (any failed check raises, and the script exits non-zero):
+Phases (any failed check raises, and the script exits non-zero; each
+prints its seconds):
   1. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
      in parallel) and print the build seconds;
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version on the card:
-     bits {1,2,4,8} × N {32, 256, 8192} × {plain, dither, mask} on
-     unit-scale inputs, then at the shapes the training run gives it; time
-     kernel, plain version and (for the FWHT) a dense x @ H matmul there;
+     a. the codec kernels and the FWHT over bits {1,2,4,8} ×
+        N {32, 128, 256, 8192} × {plain, dither, mask} on unit-scale inputs;
+     b. quantize_pack (bitwise) over bits × N {32, 128, 256, 8192, 12288},
+        and quant_decode_attention (within 2e-4) over bits × dh {64, 128}
+        × C {1, 100, 512, 1000} × G {1, 8} with kv_len {0, 1, C, ragged}
+        and packed words over the whole int32 range;
+     c. at the shapes the training run gives the codec kernels: check,
+        time kernel, plain version and (for the FWHT) a dense x @ H matmul;
+     d. the FWHT (bitwise, with a dense x @ H beside it) at the serve run's
+        decode K/V, decode query and prefill K/V shapes (dh 128),
+        quantize_pack at its decode and prefill shapes and
+        quant_decode_attention at the serve shape and a long-context shape:
+        check and time kernel and plain version;
+     (the sweep grids and inputs of b come from repro_torch.kernels.checks,
+     which tests/test_torch_cuda.py shares);
   4. train yi-6b at full width (d_model 4096, 32/4 heads, d_ff 11008,
      vocab 64000) cut to 4 of its 32 layers: 3 steps at the launcher's
      defaults (batch 8, seq 128, R = 4, allgather_packed, error feedback);
@@ -18,7 +31,20 @@ Phases (any failed check raises, and the script exits non-zero):
      runs the plain encode kernel with its dither and mask;
   6. the reduced yi-6b for 2 steps on the card and on the CPU from the same
      weights and tokens: losses and parameters must agree;
-  7. print {"kernels": [...]} and, last, the device line.
+  7. serve yi-6b at full width and all 32 layers through the 8-bit NDSC KV
+     cache: an Engine with 4 slots and max_seq 512, one 64-token prefix
+     prefilled, 8 requests (4 with the prefix and a 16-token suffix, 4 cold
+     with 80-token prompts), 16 new tokens each. Launches are counted
+     around the public calls (register_prefix, each Engine.step): every
+     decode step must launch quant_decode_attention 32 times, quantize_pack
+     64 and fwht 96; every prefill quantize_pack and fwht 64 times each;
+     one more decode step under torch.profiler gives the device's busy
+     time; the serve step on the final state gives finite logits; then the
+     prefix contract, bitwise on the card, for the 8-bit and the f32 cache;
+  8. the reduced yi-6b served on the card and on the CPU from the same
+     weights and prompts: logits within a stated tolerance, greedy tokens
+     equal;
+  9. print {"kernels": [...]} and, last, the device line.
 
 Without CUDA it exits non-zero before printing any result. Nothing here
 imports JAX or the JAX package.
@@ -28,8 +54,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -41,14 +69,46 @@ OUT_DIR = ROOT / "chiprun_out"
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 
-CHECK_BITS = (1, 2, 4, 8)
-CHECK_N = (32, 256, 8192)
+# the sweep grids (bits, N, dh, C, G) and ATTN_TOL live in
+# repro_torch/kernels/checks.py, shared with tests/test_torch_cuda.py
 CHECK_MODES = ("plain", "dither", "mask")
 EF_TOL = {torch.float32: 4e-6, torch.bfloat16: 4e-3}
+# the serve run: yi-6b, 32 layers, 8-bit NDSC KV cache
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_BITS, SERVE_NEW = 4, 512, 8, 16
+PREFIX_LEN, SUFFIX_LEN, COLD_LEN = 64, 16, 80
+# timed shapes of the serving kernels: quantize_pack rows (B·K at decode,
+# 4·32768·4 at a prefill) of N = 128; quant_decode_attention (B, C) at the
+# serve run's shape and at a long context, yi-6b's K 4, G 8, dh 128
+PACK_TIME_SHAPES = (("decode", (SERVE_SLOTS, 1, 4, 128)),
+                    ("prefill", (4, 32768, 4, 128)))
+ATTN_TIME_SHAPES = (("serve", (SERVE_SLOTS, SERVE_MAX_SEQ)),
+                    ("long", (32, 32768)))
+# the FWHT on the serve path: K/V rows at a decode step (B, 1, K, dh), the
+# query rows (B, K, G, dh), and K/V rows of a cold 80-token prefill
+FWHT_TIME_SHAPES = (("decode_kv", (SERVE_SLOTS, 1, 4, 128)),
+                    ("decode_q", (SERVE_SLOTS, 4, 8, 128)),
+                    ("prefill_kv", (1, COLD_LEN, 4, 128)))
+# card vs CPU on the reduced model: a code that lands in the neighbouring
+# bin moves one cached value by 2/256 of its vector's scale
+SMALL_LOGIT_TOL = 1e-3
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class PhaseClock:
+    """`done(name)` prints the seconds since the previous phase ended."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds = {}
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        log(f"[phase] {name} {now - self.t:.2f}s")
+        self.t = now
 
 
 def timed(fn, reps: int = 5) -> float:
@@ -72,6 +132,369 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_serve_kernels(dev) -> tuple:
+    """quantize_pack bitwise and quant_decode_attention within ATTN_TOL
+    over the sweep; returns (configs checked, attention max abs error)."""
+    from repro_torch.kernels import checks
+    n_cfg, err = 0, 0.0
+    for bits in checks.BITS:
+        for n in checks.PACK_N:
+            checks.check_quantize_pack(n, bits, dev)
+            n_cfg += 1
+    for bits in checks.BITS:
+        for dh in checks.ATTN_DH:
+            for c in checks.ATTN_C:
+                for g in checks.ATTN_G:
+                    err = max(err, checks.check_quant_decode_attention(
+                        bits, dh, c, g, dev))
+                    n_cfg += 1
+    torch.cuda.synchronize()
+    return n_cfg, err
+
+
+def time_serve_kernels(ops, ref, dev) -> dict:
+    """The serving kernels at the serve run's shapes, checked, timed and
+    bounded: the FWHT (bitwise; dense x @ H as the library call) at
+    FWHT_TIME_SHAPES, kernels 5 and 6 at PACK_TIME_SHAPES and
+    ATTN_TIME_SHAPES, 8 bits, every cache position valid."""
+    from repro_torch.kernels import checks
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    h = ref.fwht(torch.eye(128, device=dev))                # dense H
+    for tag, shape in FWHT_TIME_SHAPES:
+        x = torch.randn(shape, generator=g, device=dev)
+        if not torch.equal(ops.fwht(x), ref.fwht(x)):
+            raise AssertionError(f"fwht differs at {shape}")
+        coords = x.numel()
+        b, by = bound_ms(coords * 8, coords * (math.log2(shape[-1]) + 1))
+        out[f"fwht/{tag}"] = {
+            "shape": list(shape),
+            "ms": timed(lambda: ops.fwht(x), 20),
+            "plain_ms": timed(lambda: ref.fwht(x), 3),
+            "library_ms": timed(lambda: x @ h, 20),
+            "bound_ms": b, "bound_by": by, "max_abs_err": 0.0}
+    for tag, shape in PACK_TIME_SHAPES:
+        x = torch.randn(shape, generator=g, device=dev)
+        scale = x.abs().amax(-1, keepdim=True)
+        if not torch.equal(ops.quantize_pack(x, scale, SERVE_BITS),
+                           ref.quantize_pack(x, scale, SERVE_BITS)):
+            raise AssertionError(f"quantize_pack differs at {shape}")
+        coords, rows = x.numel(), x.numel() // shape[-1]
+        b, by = bound_ms(coords * (4 + SERVE_BITS / 8) + rows * 4,
+                         coords * 10)
+        out[f"quantize_pack/{tag}"] = {
+            "shape": list(shape),
+            "ms": timed(lambda: ops.quantize_pack(x, scale, SERVE_BITS), 20),
+            "plain_ms": timed(lambda: ref.quantize_pack(x, scale,
+                                                        SERVE_BITS), 3),
+            "library_ms": None, "bound_ms": b, "bound_by": by,
+            "max_abs_err": 0.0}
+        del x, scale
+    kh, gq, dh = 4, 8, 128
+    wpv = dh * SERVE_BITS // 32
+    for tag, (b_, c) in ATTN_TIME_SHAPES:
+        args = checks.attention_inputs(b_, c, kh, gq, dh, SERVE_BITS, c,
+                                       dev, lens=[c] * b_)
+        got = ops.quant_decode_attention(*args, bits=SERVE_BITS)
+        want = ref.quant_decode_attention(*args, bits=SERVE_BITS)
+        e = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=checks.ATTN_TOL,
+                              atol=checks.ATTN_TOL):
+            raise AssertionError(f"quant_decode_attention differs at "
+                                 f"B={b_} C={c}: {e}")
+        del got, want
+        visited = b_ * c                  # kv_len = C: every position
+        # read K and V words + scales of each visited (position, head),
+        # q once, write out; two products over G rows + the unpack of K, V
+        nbytes = visited * kh * (4 * wpv + 4) * 2 + 2 * b_ * kh * gq * dh * 4
+        flops = 4 * kh * gq * visited * dh + 2 * 4 * visited * kh * dh
+        bnd, by = bound_ms(nbytes, flops)
+        out[f"quant_decode_attention/{tag}"] = {
+            "shape": [b_, c, kh, gq, dh],
+            "ms": timed(lambda: ops.quant_decode_attention(
+                *args, bits=SERVE_BITS), 20),
+            "plain_ms": timed(lambda: ref.quant_decode_attention(
+                *args, bits=SERVE_BITS), 3),
+            "library_ms": None, "bound_ms": bnd, "bound_by": by,
+            "max_abs_err": e}
+        del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_phase(dev) -> tuple:
+    """The serving main path at full width and depth; returns (launch
+    counts of the run, its numbers)."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.dist.step import make_serve_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode as decode_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import (Engine, Request, ServeConfig,
+                                   verify_prefix_contract)
+
+    cfg = dataclasses.replace(configs.get("yi-6b"), kv_quant_bits=SERVE_BITS)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(0, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_lib.leaves(params))
+    log(f"[serve] yi-6b {cfg.num_layers} layers, {n_params} params "
+        f"({n_params * 4 / 1e9:.2f} GB f32) made in {init_s:.2f}s")
+
+    nl = cfg.num_scanned
+    per_token = {"quant_decode_attention": nl, "quantize_pack": 2 * nl,
+                 "fwht": 3 * nl}
+    per_prefill = {"quantize_pack": 2 * nl, "fwht": 2 * nl}
+
+    def plus(*terms):
+        """Sum of (launches dict, times) terms."""
+        out = {}
+        for d, n in terms:
+            for k, v in d.items():
+                out[k] = out.get(k, 0) + v * n
+        return out
+
+    def counted(what, fn, want):
+        """Run fn (a public engine call) between two synchronizes; its
+        launches must equal want() (read after the call); returns its
+        seconds."""
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        expect = want()
+        expect = {k: expect.get(k, 0) for k in delta}
+        if delta != expect:
+            raise AssertionError(f"{what}: launches {delta}, want {expect}")
+        return dt
+
+    def admission_launches(req):
+        """A cold admission prefills its prompt; a prefix hit decodes its
+        suffix one token at a time; a prefix miss does both."""
+        terms = []
+        if req.admission in ("cold", "prefix_cold"):
+            terms.append((per_prefill, 1))
+        if req.admission in ("prefix_hit", "prefix_cold"):
+            terms.append((per_token, len(req.prompt)))
+        return terms
+
+    eng = Engine(cfg, params, ServeConfig(slots=SERVE_SLOTS,
+                                          max_seq=SERVE_MAX_SEQ), device=dev)
+    gen = torch.Generator()
+    gen.manual_seed(5)
+
+    def tokens(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             dtype=torch.int32).numpy()
+
+    prefix = tokens(PREFIX_LEN)
+    prompts = [(tokens(SUFFIX_LEN), "sys") if rid % 2 == 0
+               else (tokens(COLD_LEN), None) for rid in range(8)]
+    reqs = [Request(rid=rid, prompt=prompt, max_new_tokens=SERVE_NEW,
+                    prefix_id=pid) for rid, (prompt, pid) in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    prefix_prefill_s = counted(
+        "register_prefix",
+        lambda: eng.register_prefix("sys", prefix, prefill=True),
+        lambda: per_prefill)
+    for req in reqs:
+        eng.submit(req)
+    steps = []                  # (seconds, admission kinds of the step)
+    while not eng.idle():
+        if len(steps) > 4 * SERVE_NEW:
+            raise AssertionError(f"engine still busy after {len(steps)} "
+                                 "steps")
+        waiting = [r for r in reqs if r.admission is None]
+        busy = any(r is not None for r in eng.active)
+        admitted = []
+
+        def step_launches():
+            admitted.extend(r for r in waiting if r.admission is not None)
+            terms = [t for r in admitted for t in admission_launches(r)]
+            if busy or admitted:                   # one batched decode
+                terms.append((per_token, 1))
+            return plus(*terms)
+
+        dt = counted(f"step {len(steps) + 1}", eng.step, step_launches)
+        steps.append((dt, [r.admission for r in admitted]))
+    run_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finished = eng.finished
+
+    if len(finished) != 8 or any(len(r.tokens_out) != SERVE_NEW
+                                 for r in finished):
+        raise AssertionError("not every request finished with "
+                             f"{SERVE_NEW} tokens")
+    kinds = sorted(r.admission for r in finished)
+    if kinds != ["cold"] * 4 + ["prefix_hit"] * 4:
+        raise AssertionError(f"admissions {kinds}")
+    for name in ("quant_decode_attention", "quantize_pack", "fwht"):
+        if counts[name] == 0:
+            raise AssertionError(f"{name} never launched on the serve path")
+    for name in ("k_scale", "v_scale"):
+        if not bool(torch.isfinite(eng.state.caches[name]).all()):
+            raise AssertionError(f"non-finite {name} in the KV cache")
+    decode_s = [dt for dt, admitted in steps if not admitted]
+    ttft = {k: statistics.median(r.ttft_s for r in finished
+                                 if r.admission == k)
+            for k in ("cold", "prefix_hit")}
+    positional = [x for name, x in eng.state.caches.items()
+                  if name in decode_lib.POSITIONAL_CACHE_KEYS
+                  and name.endswith("words")]
+    cache_bytes = decode_lib.state_bytes(eng.state)
+    f32_bytes = (2 * nl * SERVE_SLOTS * SERVE_MAX_SEQ * cfg.num_kv_heads
+                 * cfg.dh * 4 + eng.state.pos.numel() * 4)
+    n_tokens = sum(len(r.tokens_out) for r in finished)
+    numbers = {
+        "layers": nl, "params": n_params, "init_s": init_s,
+        "run_s": run_s, "tokens": n_tokens, "tokens_per_s": n_tokens / run_s,
+        "steps": len(steps), "decode_steps": len(decode_s),
+        "decode_step_s_median": statistics.median(decode_s),
+        "decode_tokens_per_s": SERVE_SLOTS / statistics.median(decode_s),
+        "prefix_prefill_s": prefix_prefill_s,
+        "admission_steps": [{"s": dt, "admitted": admitted}
+                            for dt, admitted in steps if admitted],
+        "ttft_s_median": ttft, "peak_mem_GB": peak_gb,
+        "cache_bytes": cache_bytes, "cache_bytes_if_f32": f32_bytes,
+        "words_shape": list(positional[0].shape), "launches": counts}
+    log(f"[serve x32] {json.dumps(numbers)}")
+
+    # one decode step of 4 busy slots under the profiler: the device's busy
+    # time (its kernels and copies) against the unprofiled median step
+    for rid in range(SERVE_SLOTS):
+        eng.submit(Request(rid=100 + rid, prompt=tokens(COLD_LEN),
+                           max_new_tokens=4))
+    eng.step()                                   # admissions + one decode
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    eng.run_to_completion()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    step_ms = numbers["decode_step_s_median"] * 1e3
+    numbers["profiled_step"] = {
+        "wall_ms_profiled": wall_ms,
+        "device_busy_ms": busy_ms if kern else "not measured",
+        "idle_share_of_median_step": (1 - busy_ms / step_ms) if kern
+        else "not measured",
+        "device_ops": sum(e.count for e in kern),
+        "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                for e in sorted(kern, key=lambda e: -e.self_device_time_total)
+                [:8]]}
+    log(f"[serve x32] profiled decode step: "
+        f"{json.dumps(numbers['profiled_step'])}")
+    # the serve step the launcher uses, pinned to the card, on the engine's
+    # final state: its logits must be finite
+    logits, _ = make_serve_step(cfg, dev)(params, eng.state, eng.last_token)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits from the serve step")
+    del eng, logits
+
+    # the prefix contract on the card, 8-bit and f32 caches, same weights
+    contract = {}
+    for bits in (SERVE_BITS, None):
+        c_cfg = dataclasses.replace(cfg, kv_quant_bits=bits)
+        t = time.perf_counter()
+        ev = verify_prefix_contract(
+            c_cfg, params, ServeConfig(slots=SERVE_SLOTS,
+                                       max_seq=SERVE_MAX_SEQ),
+            prefix, prompts[0][0], device=dev)
+        contract[f"kv{bits or 32}"] = {**ev, "s": time.perf_counter() - t}
+    log(f"[serve x32] prefix contract bitwise (hit == cold) on the card, "
+        f"{cfg.num_layers} layers: {json.dumps(contract)}")
+    numbers["prefix_contract"] = contract
+    del params
+    torch.cuda.empty_cache()
+    return counts, numbers
+
+
+def small_serve_phase(dev) -> dict:
+    """The reduced yi-6b with the 8-bit cache on the card and on the CPU
+    from the same weights and prompts. Both decode the CPU's greedy tokens
+    (so a difference cannot cascade); logits must agree within
+    SMALL_LOGIT_TOL, every cached code within one bin, the greedy tokens
+    exactly; then an Engine on each device must emit the same tokens."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import decode as decode_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    small = dataclasses.replace(configs.get_reduced("yi-6b"),
+                                kv_quant_bits=SERVE_BITS)
+    devices = {"cpu": torch.device("cpu"), "card": dev}
+    params = {"cpu": model_lib.init_params(0, small)}
+    params["card"] = tree_lib.map(lambda x: x.to(dev), params["cpu"])
+    gen = torch.Generator()
+    gen.manual_seed(6)
+    toks = torch.randint(0, small.vocab_size, (2, 12), generator=gen,
+                         dtype=torch.int32)
+    logits, states = {}, {}
+    for d, device in devices.items():
+        lg, states[d] = decode_lib.prefill(small, params[d], toks.to(device),
+                                           32)
+        logits[d] = [lg.cpu()]
+    for _ in range(6):
+        tok = decode_lib.greedy_token(logits["cpu"][-1])
+        for d, device in devices.items():
+            lg, states[d] = decode_lib.decode_step(small, params[d],
+                                                   states[d], tok.to(device))
+            logits[d].append(lg.cpu())
+    err = max(float((a - b).abs().max())
+              for a, b in zip(logits["cpu"], logits["card"]))
+    same_tokens = all(torch.equal(a.argmax(-1), b.argmax(-1))
+                      for a, b in zip(logits["cpu"], logits["card"]))
+    k = 32 // SERVE_BITS
+    shifts = torch.arange(k, dtype=torch.int64) * SERVE_BITS
+    codes_differ, codes, max_bin = 0, 0, 0
+    for name in ("k_words", "v_words"):
+        a = states["cpu"].caches[name].to(torch.int64)
+        b = states["card"].caches[name].cpu().to(torch.int64)
+        ca = ((a & 0xFFFFFFFF)[..., None] >> shifts) & (2 ** SERVE_BITS - 1)
+        cb = ((b & 0xFFFFFFFF)[..., None] >> shifts) & (2 ** SERVE_BITS - 1)
+        diff = (ca - cb).abs()
+        codes_differ += int((diff > 0).sum())
+        codes += diff.numel()
+        max_bin = max(max_bin, int(diff.max()))
+
+    def run(d):
+        eng = Engine(small, params[d], ServeConfig(slots=2, max_seq=40),
+                     device=devices[d])
+        eng.register_prefix("sys", toks[0, :10].numpy())
+        for rid, (p, pid) in enumerate(((toks[1, :6], None),
+                                        (toks[1, 6:], "sys"),
+                                        (toks[0, 3:7], None))):
+            eng.submit(Request(rid=rid, prompt=p.numpy(), max_new_tokens=5,
+                               prefix_id=pid))
+        return {r.rid: r.tokens_out for r in eng.run_to_completion()}
+
+    engine_cpu, engine_cuda = run("cpu"), run("card")
+    out = {"logits_max_abs_diff": err, "greedy_equal": same_tokens,
+           "codes_differ": codes_differ, "codes": codes,
+           "max_bin_diff": max_bin,
+           "engine_tokens_equal": engine_cpu == engine_cuda}
+    log(f"[small serve] card vs CPU: {json.dumps(out)}")
+    if not (err <= SMALL_LOGIT_TOL and same_tokens and max_bin <= 1
+            and engine_cpu == engine_cuda):
+        raise AssertionError("card and CPU disagree on the small serve run")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -82,7 +505,7 @@ def main() -> int:
     from repro_torch import tree as tree_lib
     from repro_torch.dist import gradcomp as G
     from repro_torch.dist import step as step_lib
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, checks, ops, ref
     from repro_torch.launch.train import train
     from repro_torch.models import model as model_lib
     from repro_torch.optimizer import optim
@@ -90,6 +513,7 @@ def main() -> int:
     dev = torch.device("cuda")
     model_lib.disable_tf32()
     results = {}
+    clock = PhaseClock()
 
     # -- 1. build -----------------------------------------------------------
     build_s = _build.build()
@@ -97,6 +521,7 @@ def main() -> int:
     for name, text in _build.build_log.items():
         regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
         log(f"[build] {name}.cu: " + " | ".join(regs))
+    clock.done("1 build")
 
     # -- 2. card --------------------------------------------------------------
     smi = subprocess.run(
@@ -104,6 +529,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    clock.done("2 card")
 
     # -- 3a. every kernel vs its plain version, sweep -------------------------
     gen = torch.Generator(device=dev)
@@ -111,8 +537,8 @@ def main() -> int:
     err = {"encode": 0.0, "encode_ef": 0.0, "unpack_dequant": 0.0,
            "fwht": 0.0}
     configs_checked = 0
-    for bits in CHECK_BITS:
-        for n in CHECK_N:
+    for bits in checks.BITS:
+        for n in checks.CODEC_N:
             rows = 64
             x = torch.randn(rows, n, generator=gen, device=dev)
             x = x / x.abs().amax(-1, keepdim=True)          # unit scale
@@ -154,8 +580,17 @@ def main() -> int:
     log(f"[check] {configs_checked} configs: payloads and FWHT/unpack "
         f"bitwise; EF residual max err f32 {err['encode_ef']:.3g} "
         f"(tol 4e-6), bf16 within 4e-3")
+    clock.done("3a codec sweep")
 
-    # -- 3b. at the training run's shapes: check, time, bound ----------------
+    # -- 3b. the serving kernels vs their plain versions, sweep ---------------
+    n_serve_cfg, err["quant_decode_attention"] = check_serve_kernels(dev)
+    err["quantize_pack"] = 0.0
+    log(f"[check] {n_serve_cfg} configs: quantize_pack bitwise; "
+        f"quant_decode_attention max abs err "
+        f"{err['quant_decode_attention']:.3g} (tol {checks.ATTN_TOL})")
+    clock.done("3b serve-kernel sweep")
+
+    # -- 3c. at the training run's shapes: check, time, bound ----------------
     def leaf_shapes(cfg):
         return tree_lib.leaves(model_lib.param_shapes(cfg),
                                is_leaf=lambda s: isinstance(s, tuple))
@@ -264,6 +699,19 @@ def main() -> int:
         log(json.dumps({"kernel": name, **results[name],
                         "shapes": "yi-6b x1 layer, dithered, keep 0.5"
                         if name == "encode" else "yi-6b x4 layers"}))
+    clock.done("3c codec kernels at training shapes")
+
+    # -- 3d. the serving kernels at the serve run's shapes --------------------
+    serve_times = time_serve_kernels(ops, ref, dev)
+    for key, r in serve_times.items():
+        log(json.dumps({"kernel": key, **r}))
+    for name, tag in (("quantize_pack", "decode"),
+                      ("quant_decode_attention", "serve")):
+        r = serve_times[f"{name}/{tag}"]
+        results[name] = {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")}
+        results[name]["max_abs_err"] = max(err[name], r["max_abs_err"])
+    clock.done("3d serve kernels at serve shapes")
 
     # -- 4. the main path: full-width yi-6b, 4 layers, launcher defaults -----
     per_step = []
@@ -298,6 +746,7 @@ def main() -> int:
         f"peak_mem_GB {peak_gb:.2f}")
     del params
     torch.cuda.empty_cache()
+    clock.done("4 train x4")
 
     # -- 5. dithered, keep 0.5, 1 layer: the plain encode kernel --------------
     ops.reset_launch_counts()
@@ -313,6 +762,7 @@ def main() -> int:
         f"launches {dk_counts}")
     del params
     torch.cuda.empty_cache()
+    clock.done("5 train x1 dithered")
 
     # -- 6. small input: the card vs the CPU's plain versions -----------------
     small = configs.get_reduced("yi-6b")
@@ -346,8 +796,18 @@ def main() -> int:
                 and float(diffs.max()) <= 3 * lr * (s + 1)
                 and float(diffs.median()) <= 1e-6):
             raise AssertionError("card and CPU disagree on the small input")
+    del states, step_fns
+    clock.done("6 small train, card vs CPU")
 
-    # -- 7. result lines --------------------------------------------------------
+    # -- 7. the serving main path: yi-6b, 32 layers, 8-bit NDSC KV cache -------
+    serve_counts, serve_numbers = serve_phase(dev)
+    clock.done("7 serve x32")
+
+    # -- 8. small input: serving on the card vs the CPU -----------------------
+    small_serve = small_serve_phase(dev)
+    clock.done("8 small serve, card vs CPU")
+
+    # -- 9. result lines --------------------------------------------------------
     names = {
         "encode": ("src/repro_torch/csrc/quantencode.cu",
                    "src/repro/kernels/quantencode.py:200", dk_counts),
@@ -357,6 +817,11 @@ def main() -> int:
                            "src/repro/kernels/quantpack.py:94", main_counts),
         "fwht": ("src/repro_torch/csrc/fwht.cu",
                  "src/repro/kernels/fwht.py:43", main_counts),
+        "quantize_pack": ("src/repro_torch/csrc/quantpack.cu",
+                          "src/repro/kernels/quantpack.py:59", serve_counts),
+        "quant_decode_attention": ("src/repro_torch/csrc/quantdecode.cu",
+                                   "src/repro/kernels/quantdecode.py:100",
+                                   serve_counts),
     }
     kernels = []
     for name, (src, replaces, counts) in names.items():
@@ -370,7 +835,9 @@ def main() -> int:
     record = {"card": card, "build_s": build_s, "kernels": kernels,
               "train_x4": {"losses": losses, "step_s": secs,
                            "peak_mem_GB": peak_gb},
-              "train_x1_dithered": {"losses": losses1, "step_s": secs1}}
+              "train_x1_dithered": {"losses": losses1, "step_s": secs1},
+              "serve_kernels": serve_times, "serve_x32": serve_numbers,
+              "small_serve": small_serve, "phase_s": clock.seconds}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))

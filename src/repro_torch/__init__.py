@@ -15,7 +15,9 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """`device` as a torch.device, defaulting to `cuda`.
+    """`device` as a torch.device, defaulting to `cuda`; a bare `cuda`
+    gets the current card's index, so it compares equal to a tensor's
+    device.
 
     Raises if CUDA is asked for (explicitly or by default) and absent."""
     dev = torch.device("cuda" if device is None else device)
@@ -23,4 +25,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

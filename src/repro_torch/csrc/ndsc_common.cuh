@@ -1,5 +1,6 @@
 // Shared pieces of the NDSC codec kernels (fwht.cu, quantpack.cu,
-// quantencode.cu): the row tiling and the in-shared-memory FWHT.
+// quantencode.cu, quantdecode.cu): the row tiling, the in-shared-memory
+// FWHT and the quantize-and-pack of one int32 word.
 //
 // Bitwise contract with the plain versions (repro_torch/kernels/ref.py):
 // every float operation on the payload path is a round-to-nearest
@@ -9,6 +10,7 @@
 // for h = 1, 2, 4, ...) and its single final multiply by f32(1/sqrt(N)).
 #pragma once
 
+#include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -56,6 +58,40 @@ __device__ inline void fwht_tile(float* sm, int nrows, int log2n,
   for (int e = threadIdx.x; e < nrows * n; e += blockDim.x)
     sm[e] = __fmul_rn(sm[e], inv_sqrt_n);
   __syncthreads();
+}
+
+// The k = 32/bits values v[0..k) quantized against `scale` and packed,
+// code j at bit j*bits: index clip(floor((clip(v / max(scale, FLT_MIN),
+// -1, 1) + 1) / (2 / 2^bits)), 0, 2^bits - 1), as ref.quantize_pack.
+// Dividing by the power of two 2 / 2^bits is multiplying by 2^(bits-1):
+// both are exact on [0, 2], so the product gives the division's bits.
+__device__ inline unsigned quantize_pack_word(const float* v, float scale,
+                                              int bits) {
+  const int k = 32 / bits;
+  const float levels = static_cast<float>(1 << bits);
+  const float inv_delta = static_cast<float>(1 << (bits - 1));
+  const float denom = fmaxf(scale, FLT_MIN);
+  unsigned w = 0;
+  for (int j = 0; j < k; ++j) {
+    const float q = fminf(fmaxf(__fdiv_rn(v[j], denom), -1.0f), 1.0f);
+    float id = floorf(__fmul_rn(__fadd_rn(q, 1.0f), inv_delta));
+    id = fminf(fmaxf(id, 0.0f), levels - 1.0f);
+    w |= static_cast<unsigned>(id) << (j * bits);
+  }
+  return w;
+}
+
+// 2^-bits, the argument `dequant` takes.
+__host__ __device__ inline float inv_levels(int bits) {
+  return 1.0f / static_cast<float>(1 << bits);
+}
+
+// Dequantized value of code `idx`: (-1 + (2*idx + 1) / 2^bits) * scale,
+// as ref.unpack_dequant. 2*idx + 1 < 2^9 is an integer, so its quotient by
+// 2^bits is exact and equals its product with inv_levels(bits).
+__device__ inline float dequant(unsigned idx, float inv_levels, float scale) {
+  const float t = __fadd_rn(__fmul_rn(2.0f, static_cast<float>(idx)), 1.0f);
+  return __fmul_rn(__fadd_rn(-1.0f, __fmul_rn(t, inv_levels)), scale);
 }
 
 }  // namespace ndsc

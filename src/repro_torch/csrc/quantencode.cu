@@ -21,10 +21,10 @@
 // device memory sees the input, the payload and the residual once each
 // (the residual step re-reads u, which the L2 cache mostly serves). The
 // row maximum is an atomicMax on the bit patterns of |x| in shared memory,
-// exact for non-negative floats. Each thread packs whole words, so word
-// stores are coalesced; the dither is added elementwise, so its reads are.
-#include <cfloat>
-
+// exact for non-negative floats. Each thread packs whole words (with
+// ndsc::quantize_pack_word, which quantpack.cu's quantize_pack shares), so
+// word stores are coalesced; the dither is added elementwise, so its reads
+// are.
 #include <cuda_bf16.h>
 
 #include "ndsc_common.cuh"
@@ -77,22 +77,13 @@ __global__ void encode_kernel(const float* __restrict__ x,
 
   const int k = 32 / bits;
   const int wpr = n / k;
-  const float levels = static_cast<float>(1 << bits);
-  const float delta = __fdiv_rn(2.0f, levels);
+  const float inv_levels = ndsc::inv_levels(bits);
   for (int wi = threadIdx.x; wi < nrows * wpr; wi += blockDim.x) {
     const int r = wi / wpr;
     const int c = wi - r * wpr;
     const float s = __int_as_float(row_max[r]);
-    const float denom = fmaxf(s, FLT_MIN);
     float* v = sm + r * n + c * k;
-    unsigned w = 0;
-    for (int j = 0; j < k; ++j) {
-      const float q = fminf(fmaxf(__fdiv_rn(v[j], denom), -1.0f), 1.0f);
-      float id = floorf(__fdiv_rn(__fadd_rn(q, 1.0f), delta));
-      id = fminf(fmaxf(id, 0.0f), levels - 1.0f);
-      w |= static_cast<unsigned>(id) << (j * bits);
-    }
-    int32_t wo = static_cast<int32_t>(w);
+    int32_t wo = static_cast<int32_t>(ndsc::quantize_pack_word(v, s, bits));
     float s_out = s;
     float mk = 1.0f;
     if (mask != nullptr) {
@@ -108,9 +99,7 @@ __global__ void encode_kernel(const float* __restrict__ x,
       const unsigned code_mask = (1u << bits) - 1u;
       for (int j = 0; j < k; ++j) {
         const unsigned idx = (wu >> (j * bits)) & code_mask;
-        const float t =
-            __fadd_rn(__fmul_rn(2.0f, static_cast<float>(idx)), 1.0f);
-        float xh = __fmul_rn(__fadd_rn(-1.0f, __fdiv_rn(t, levels)), s_out);
+        float xh = ndsc::dequant(idx, inv_levels, s_out);
         if (mask != nullptr) {
           xh = __fmul_rn(xh, mk);
           if (has_rescale) xh = __fdiv_rn(xh, rescale);

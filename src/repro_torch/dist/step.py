@@ -1,4 +1,5 @@
-"""Train step with compressed gradient consensus (port of `repro.dist.step`).
+"""Train step with compressed gradient consensus, and the serve step (port
+of `repro.dist.step`).
 
 Strategies (GradCompConfig.strategy), as in the reference:
 
@@ -17,11 +18,15 @@ a 1×1 mesh. More workers raise until the `torch.distributed` slice.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
 from repro_torch.codecs import stages as codec_stages
 from repro_torch.dist import gradcomp as G
+from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
 from repro_torch.optimizer.optim import clip_by_global_norm, global_norm
 
@@ -125,3 +130,26 @@ def init_train_state(cfg, opt, gc: G.GradCompConfig, num_workers: int = 1,
         (num_workers,) + tuple(p.shape), dtype=torch.float32,
         device=p.device), params) if gc.uses_ef else {})
     return params, opt_state, ef
+
+
+def make_serve_step(cfg, mesh=None):
+    """(params, DecodeState, tokens (B, 1)) → (logits (B, V), state): the
+    eager `decode_step` at one worker. `mesh` keeps the reference's
+    signature; it must be None or a single device, since serving across
+    workers is not ported yet. A device pins the step: it raises on
+    parameters that live elsewhere."""
+    if mesh is None:
+        return functools.partial(decode_lib.decode_step, cfg)
+    if not isinstance(mesh, (str, torch.device)):
+        raise NotImplementedError(
+            f"mesh={mesh!r}: only one device is ported so far; serving "
+            "across workers waits for the torch.distributed slice")
+    device = resolve_device(mesh)
+
+    def serve_step(params, state, tokens):
+        if params["embed"].device != device:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"serve step on {device}")
+        return decode_lib.decode_step(cfg, params, state, tokens)
+
+    return serve_step

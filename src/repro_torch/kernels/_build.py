@@ -19,24 +19,31 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fwht", "quantpack", "quantencode")
+SOURCES = ("fwht", "quantpack", "quantencode", "quantdecode")
 HEADERS = ("ndsc_common.cuh",)
 # No --use_fast_math: the payload path relies on IEEE rounding.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+_F = ctypes.c_float
+# library: {exported C function: argtypes}
 _SIGNATURES = {
-    # name: (function, argtypes)
-    "fwht": ("ndsc_fwht",
-             [_P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_float, _P]),
-    "quantpack": ("ndsc_unpack_dequant",
-                  [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, _P]),
-    "quantencode": ("ndsc_encode",
-                    [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                     ctypes.c_int, ctypes.c_float, ctypes.c_int, _P]),
+    "fwht": {"ndsc_fwht": [_P, _P, _I64, _I, _F, _P]},
+    "quantpack": {
+        "ndsc_unpack_dequant": [_P, _P, _P, _I64, _I, _I, _I, _P],
+        "ndsc_quantize_pack": [_P, _P, _P, _I64, _I, _I, _P],
+    },
+    "quantencode": {
+        "ndsc_encode": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _F, _I,
+                        _F, _I, _P],
+    },
+    "quantdecode": {
+        "ndsc_quant_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                        _I, _I, _I, _I, _I, _I, _F, _P],
+    },
 }
 
 _loaded: dict = {}
@@ -94,14 +101,16 @@ def build(names=SOURCES) -> float:
 
 
 def library(name: str):
-    """The loaded ctypes function of library `name` (building on first use)."""
+    """The loaded library `name` (building it on first use), with argtypes
+    and an int return type set on each of its exported functions."""
     if name not in _loaded:
         build((name,))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _loaded[name] = lib
     return _loaded[name]
 
 

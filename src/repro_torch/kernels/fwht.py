@@ -37,7 +37,7 @@ def fwht_cuda(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"CUDA FWHT needs a power-of-2 N ≤ {MAX_N}, got {n}")
     y = torch.empty_like(x)
     rows = x.numel() // n if n else 0
-    fn = _build.library("fwht")
+    fn = _build.library("fwht").ndsc_fwht
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), y.data_ptr(), rows, n,
                 float(torch.tensor(1.0 / math.sqrt(n), dtype=torch.float32)),

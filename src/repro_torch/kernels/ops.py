@@ -2,9 +2,11 @@
 
 A CPU tensor runs the plain PyTorch version (`kernels.ref`); a CUDA tensor
 runs the hand-written kernel, or raises where the kernel refuses the input
-(N > 8192, a dtype it does not take). There is no switch and no fallback:
-unlike `repro.kernels.ops`, nothing here quietly swaps in the reference on
-the accelerator. Each CUDA wrapper counts its launches (`launch_counts`).
+(N > 8192 for the FWHT and the encoders, a dtype it does not take). There
+is no switch and no fallback: unlike `repro.kernels.ops`, nothing here
+quietly swaps in the reference on the accelerator. All six TPU kernels have
+a CUDA counterpart; each CUDA wrapper counts its launches
+(`launch_counts`).
 """
 from __future__ import annotations
 
@@ -12,12 +14,15 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fwht import fwht_cuda
+from repro_torch.kernels.quantdecode import quant_decode_attention_cuda
 from repro_torch.kernels.quantencode import encode_cuda, encode_ef_cuda
 from repro_torch.kernels.quantpack import (quantize_pack_cuda,
                                            unpack_dequant_cuda)
 
 KERNELS = {"encode": encode_cuda, "encode_ef": encode_ef_cuda,
-           "unpack_dequant": unpack_dequant_cuda, "fwht": fwht_cuda}
+           "unpack_dequant": unpack_dequant_cuda, "fwht": fwht_cuda,
+           "quantize_pack": quantize_pack_cuda,
+           "quant_decode_attention": quant_decode_attention_cuda}
 
 
 def launch_counts() -> dict:
@@ -55,7 +60,8 @@ def quantize_pack(x: torch.Tensor, scale: torch.Tensor,
     """Uniform quantize + bit-pack to int32 words (bits ∈ {1,2,4,8})."""
     if _on_cpu(x):
         return _ref.quantize_pack(x, scale, bits)
-    return quantize_pack_cuda(x, scale, bits)
+    scale = scale.expand(tuple(x.shape[:-1]) + (1,))
+    return quantize_pack_cuda(x.contiguous(), scale.contiguous(), bits)
 
 
 def unpack_dequant(words: torch.Tensor, scale: torch.Tensor, bits: int,
@@ -91,3 +97,22 @@ def encode_ef(chunks: torch.Tensor, signs: torch.Tensor, bits: int, *,
     return encode_ef_cuda(chunks.contiguous(), signs.contiguous(), bits,
                           dither=_opt(dither), mask=_opt(mask),
                           rescale=rescale, residual_dtype=rdt)
+
+
+def quant_decode_attention(q: torch.Tensor, kw: torch.Tensor,
+                           ks: torch.Tensor, vw: torch.Tensor,
+                           vs: torch.Tensor, kv_len: torch.Tensor, *,
+                           bits: int, inv_rotate_v: bool = True
+                           ) -> torch.Tensor:
+    """Softmax attention of one query step over the NDSC-packed, rotated
+    KV cache, V inverse-rotated at the end. q (B,K,G,dh) f32 pre-scaled and
+    rotated; kw/vw (B,C,K,dh·bits/32) int32; ks/vs (B,C,K) f32; kv_len (B,)
+    int. Returns (B,K,G,dh) f32."""
+    if _on_cpu(q):
+        return _ref.quant_decode_attention(q, kw, ks, vw, vs, kv_len,
+                                           bits=bits,
+                                           inv_rotate_v=inv_rotate_v)
+    return quant_decode_attention_cuda(
+        q.contiguous(), kw.contiguous(), ks.contiguous(), vw.contiguous(),
+        vs.contiguous(), kv_len.to(torch.int32).contiguous(), bits=bits,
+        inv_rotate_v=inv_rotate_v)

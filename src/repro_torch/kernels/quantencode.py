@@ -58,7 +58,7 @@ def _launch(chunks, signs, bits, dither, mask, rescale, residual_dtype,
     scale = torch.empty(lead + (1,), dtype=torch.float32, device=dev)
     resid = torch.empty_like(chunks) if ef else None
     rows = chunks.numel() // n
-    fn = _build.library("quantencode")
+    fn = _build.library("quantencode").ndsc_encode
     with torch.cuda.device(dev):
         rc = fn(chunks.data_ptr(), signs.data_ptr(), _ptr(dither),
                 _ptr(mask), words.data_ptr(), scale.data_ptr(), _ptr(resid),

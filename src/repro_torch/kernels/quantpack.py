@@ -1,23 +1,28 @@
-"""CUDA kernel: unpack + dequantize of NDSC words (`csrc/quantpack.cu`).
+"""CUDA kernels: quantize + pack against a given scale, and unpack +
+dequantize, of NDSC words (`csrc/quantpack.cu`).
 
-Counterpart of `repro.kernels.quantpack.unpack_dequant_pallas`; bitwise
-equal to `ref.unpack_dequant`. The encoder half of that module,
-`quantize_pack_pallas`, has only its plain version here so far (ROADMAP,
-queue 2 item 5): on a CUDA tensor `quantize_pack_cuda` raises.
+Counterparts of `repro.kernels.quantpack.quantize_pack_pallas` and
+`unpack_dequant_pallas`; bitwise equal to `ref.quantize_pack` and
+`ref.unpack_dequant`. `quantize_pack` has no cap on N (the TPU kernel has
+none either); N must be a multiple of 32/bits.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fwht import _stream
+from repro_torch.kernels.fwht import _check_cuda_f32, _stream
+
+
+def _check_bits(bits: int) -> None:
+    if bits not in (1, 2, 4, 8):
+        raise ValueError(f"bits must be in {{1,2,4,8}}, got {bits}")
 
 
 def unpack_dequant_cuda(words: torch.Tensor, scale: torch.Tensor, bits: int,
                         n: int) -> torch.Tensor:
     """words (..., W) int32, scale (..., 1) f32 → f32 (..., n)."""
-    if bits not in (1, 2, 4, 8):
-        raise ValueError(f"bits must be in {{1,2,4,8}}, got {bits}")
+    _check_bits(bits)
     if not (words.is_cuda and scale.is_cuda):
         raise ValueError("words and scale must be CUDA tensors")
     if words.dtype != torch.int32 or scale.dtype != torch.float32:
@@ -33,7 +38,7 @@ def unpack_dequant_cuda(words: torch.Tensor, scale: torch.Tensor, bits: int,
         raise ValueError(f"n={n} does not fit {wpr} words of {bits}-bit codes")
     out = torch.empty(lead + (n,), dtype=torch.float32, device=words.device)
     rows = words.numel() // wpr if wpr else 0
-    fn = _build.library("quantpack")
+    fn = _build.library("quantpack").ndsc_unpack_dequant
     with torch.cuda.device(words.device):
         rc = fn(words.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, wpr,
                 n, bits, _stream(words))
@@ -42,12 +47,29 @@ def unpack_dequant_cuda(words: torch.Tensor, scale: torch.Tensor, bits: int,
     return out
 
 
-unpack_dequant_cuda.launches = 0
-
-
 def quantize_pack_cuda(x: torch.Tensor, scale: torch.Tensor,
                        bits: int) -> torch.Tensor:
-    raise NotImplementedError(
-        "quantize_pack has no CUDA kernel yet (ROADMAP.md, queue 2 item 5: "
-        "quantpack.py::quantize_pack_pallas); only its plain version on a "
-        "CPU tensor exists")
+    """x (..., N) f32, scale (..., 1) f32 → int32 words (..., N·bits/32)."""
+    _check_bits(bits)
+    _check_cuda_f32("x", x)
+    _check_cuda_f32("scale", scale)
+    n = x.shape[-1]
+    k = 32 // bits
+    if n < 1 or n % k:
+        raise ValueError(f"N={n} is not a positive multiple of the packing "
+                         f"factor {k}")
+    lead = tuple(x.shape[:-1])
+    if tuple(scale.shape) != lead + (1,):
+        raise ValueError(f"scale shape {tuple(scale.shape)} != {lead + (1,)}")
+    words = torch.empty(lead + (n // k,), dtype=torch.int32, device=x.device)
+    fn = _build.library("quantpack").ndsc_quantize_pack
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), scale.data_ptr(), words.data_ptr(),
+                x.numel() // n, n, bits, _stream(x))
+    _build.check(rc, "quantize_pack")
+    quantize_pack_cuda.launches += 1
+    return words
+
+
+unpack_dequant_cuda.launches = 0
+quantize_pack_cuda.launches = 0

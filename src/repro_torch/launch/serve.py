@@ -1,0 +1,86 @@
+"""Serving launcher: batched prefill + greedy decode against explicit caches
+(port of `repro.launch.serve`). Same flags, plus `--device` (default
+`cuda`).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+Without a GPU, the default `--device cuda` raises rather than running on
+the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import configs, resolve_device
+from repro_torch.dist import step as step_lib
+from repro_torch.models import decode as decode_lib
+from repro_torch.models import model as model_lib
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
+          device=None) -> torch.Tensor:
+    """Prefill `batch` random prompts of `prompt_len` tokens, then decode
+    `gen` greedy tokens each, from seeded random weights on `device` (cuda
+    by default). Returns the (batch, gen) generated tokens."""
+    if not cfg.decode_supported:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode")
+    device = resolve_device(device)
+    model_lib.disable_tf32()
+    params = model_lib.init_params(seed, cfg, device)
+    gen_cpu = torch.Generator()
+    gen_cpu.manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=gen_cpu, dtype=torch.int32).to(device)
+    max_seq = prompt_len + gen
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, state = decode_lib.prefill(cfg, params, prompts, max_seq)
+    _sync(device)
+    print(f"prefill[{batch}×{prompt_len}] {time.perf_counter()-t0:.2f}s "
+          f"(cache_len={decode_lib.cache_len(cfg, max_seq)}, "
+          f"kv_bits={cfg.kv_quant_bits or 32}, device={device})")
+
+    sstep = step_lib.make_serve_step(cfg)
+    tok = decode_lib.greedy_token(logits)
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, state = sstep(params, state, tok)
+        tok = decode_lib.greedy_token(logits)
+        out.append(tok)
+    seqs = torch.cat(out, dim=1).cpu()
+    dt = time.perf_counter() - t0
+    print(f"decode {gen-1} steps in {dt:.2f}s "
+          f"({(gen-1)*batch/max(dt,1e-9):.1f} tok/s)")
+    for b in range(min(batch, 4)):
+        print(f"  seq[{b}]: {seqs[b].tolist()}")
+    return seqs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="yi-6b", choices=configs.ARCH_NAMES)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain PyTorch path")
+    args = ap.parse_args(argv)
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get(args.arch))
+    return serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                 gen=args.gen, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,316 @@
+"""Decode (serving) path: one-token steps against explicit caches (port of
+`repro.models.decode`, attn_mlp family).
+
+Per-layer caches are stacked on a leading L axis, as in the reference; the
+reference's `lax.scan` over (block params, block cache) is a Python loop
+over the layers here. The attention cache is either
+
+  f32     — "k", "v": (L, B, C, K, dh) in the compute dtype;
+  NDSC    — with `cfg.kv_quant_bits`: "k_words"/"v_words" (L, B, C, K,
+            dh·bits/32) int32, "k_scale"/"v_scale" (L, B, C, K) f32 and the
+            per-layer rotation "signs" (L, K, dh), written through
+            `kvquant.encode_entry` by prefill and decode alike (one wire
+            format), read through `kvquant.quant_decode_attention`.
+
+A sliding-window cache is a ring of C = window slots (position p in slot
+p % C). `pos` is a per-slot (B,) counter, so the continuous-batching engine
+(`repro_torch.serve`) refills finished slots independently.
+
+Unlike the reference, whose arrays are immutable, the caches are updated IN
+PLACE: `decode_step` writes the new K/V into the state's cache tensors and
+returns a state holding those same tensors (with a new `pos`), and
+`scatter_slot` writes into the batched state it is given. A state passed to
+either must not be read again as the old state. `extract_slot` returns
+copies, so a prefix-cache entry never aliases a live state.
+
+Only the attn_mlp family is ported; the other blocks raise
+`NotImplementedError`.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.models import kvquant
+from repro_torch.models import layers as L
+from repro_torch.models.model import (ModelConfig, _require_attn_mlp,
+                                      block_forward, layer_params)
+
+
+class DecodeState(NamedTuple):
+    """Stacked per-layer caches + per-slot position counters."""
+
+    caches: dict            # leaves with a leading (num_scanned,) axis
+    pos: torch.Tensor       # (B,) int32 — tokens already in each slot
+
+
+# ---------------------------------------------------------------------------
+# State construction
+# ---------------------------------------------------------------------------
+def cache_len(cfg: ModelConfig, max_seq: int) -> int:
+    return cfg.decode_cache_len(max_seq)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                      dtype=None, device="cpu") -> DecodeState:
+    """Zero caches sized for decoding up to `max_seq` total positions."""
+    if not cfg.decode_supported:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    _require_attn_mlp(cfg)
+    dt = dtype or cfg.compute_dtype
+    nl = cfg.num_scanned
+    c = cache_len(cfg, max_seq)
+    caches: dict = {}
+    if cfg.kv_quant_bits:
+        qc = kvquant.init_cache(nl, batch, c, cfg.num_kv_heads, cfg.dh,
+                                cfg.kv_quant_bits, device=device)
+        caches.update(qc._asdict())
+        caches["signs"] = torch.stack([
+            kvquant.head_signs(0, layer, cfg.num_kv_heads, cfg.dh,
+                               device=device) for layer in range(nl)])
+    else:
+        for side in ("k", "v"):
+            caches[side] = torch.zeros(
+                (nl, batch, c, cfg.num_kv_heads, cfg.dh), dtype=dt,
+                device=device)
+    return DecodeState(caches=caches,
+                       pos=torch.zeros((batch,), dtype=torch.int32,
+                                       device=device))
+
+
+def _cache_len_of(state: DecodeState) -> int:
+    key = "k_words" if "k_words" in state.caches else "k"
+    return state.caches[key].shape[2]
+
+
+# ---------------------------------------------------------------------------
+# One-layer decode
+# ---------------------------------------------------------------------------
+def _attn_decode(cfg: ModelConfig, p: dict, cache: dict, h: torch.Tensor,
+                 pos: torch.Tensor, c: int) -> torch.Tensor:
+    """Self-attention for one new token against ONE layer's cache views
+    `cache`, which it updates in place; returns the attention output."""
+    b = h.shape[0]
+    x = L.rmsnorm(h, p["attn_norm"], cfg.norm_eps)
+    q = (x @ p["wq"]).reshape(b, 1, cfg.num_heads, cfg.dh)
+    k = (x @ p["wk"]).reshape(b, 1, cfg.num_kv_heads, cfg.dh)
+    v = (x @ p["wv"]).reshape(b, 1, cfg.num_kv_heads, cfg.dh)
+    positions = pos[:, None]                     # (B, 1) per-slot positions
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    rows = torch.arange(b, device=h.device)
+    slot = torch.remainder(pos, c).long()        # (B,) ring slots
+    kv_len = torch.clamp_max(pos + 1, c)         # (B,) valid lengths
+
+    if cfg.kv_quant_bits:                        # NDSC-packed cache path
+        bits = cfg.kv_quant_bits
+        signs = cache["signs"]                   # (K, dh) — this layer's D
+        for side, new in (("k", k), ("v", v)):
+            words, scale = kvquant.encode_entry(new, signs, bits)
+            cache[f"{side}_words"][rows, slot] = words[:, 0]
+            cache[f"{side}_scale"][rows, slot] = scale[:, 0]
+        o = kvquant.quant_decode_attention(
+            q, (cache["k_words"], cache["k_scale"],
+                cache["v_words"], cache["v_scale"]),
+            kv_len, signs, bits)
+    else:
+        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+        o = L.decode_attention(q, cache["k"], cache["v"], kv_len=kv_len)
+    return o.reshape(b, 1, cfg.q_dim) @ p["wo"]
+
+
+def block_decode(cfg: ModelConfig, p: dict, cache: dict, h: torch.Tensor,
+                 pos: torch.Tensor, c: int) -> torch.Tensor:
+    """One layer, one token: h (B, 1, d) → h. `cache` holds this layer's
+    cache views and is updated in place."""
+    _require_attn_mlp(cfg)
+    h = h + _attn_decode(cfg, p, cache, h, pos, c)
+    x = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
+    return h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Full-stack decode step
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: dict, state: DecodeState,
+                tokens: torch.Tensor):
+    """tokens: (B, 1) int → (logits (B, padded_vocab) f32, new state). The
+    caches of `state` are updated in place (see the module docstring)."""
+    if not cfg.decode_supported:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    _require_attn_mlp(cfg)
+    h = L.embed(tokens, params["embed"]).to(cfg.compute_dtype)  # (B, 1, d)
+    c = _cache_len_of(state)
+    for i in range(cfg.num_scanned):
+        layer_cache = {name: x[i] for name, x in state.caches.items()}
+        h = block_decode(cfg, layer_params(params, i), layer_cache, h,
+                         state.pos, c)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    logits = (h[:, 0] @ params["head"]).to(torch.float32)   # (B, V)
+    return logits, DecodeState(caches=state.caches, pos=state.pos + 1)
+
+
+def greedy_token(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy next token (B, 1) int32; ties go to the first maximal index,
+    as with jnp.argmax."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
+def decode_tokens(cfg: ModelConfig, params: dict, state: DecodeState,
+                  tokens: torch.Tensor):
+    """Feed a (B, S) block of KNOWN tokens through S decode steps: the
+    continuation primitive behind prefix-cache admission (the same
+    `decode_step` applications a cold admission runs). Returns (logits
+    after the LAST token (B, V), state advanced by S)."""
+    if tokens.dim() != 2 or tokens.shape[1] < 1:
+        raise ValueError(f"decode_tokens needs (B, S>=1) tokens, "
+                         f"got {tuple(tokens.shape)}")
+    logits = None
+    for t in range(tokens.shape[1]):
+        logits, state = decode_step(cfg, params, state, tokens[:, t:t + 1])
+    return logits, state
+
+
+# ---------------------------------------------------------------------------
+# Slot scatter / extract: the continuous-batching and prefix-cache primitives
+# ---------------------------------------------------------------------------
+# Cache leaves indexed (L, B, C, ...) by position along axis 2 — the leaves a
+# prefix-cache entry trims to its own length. "signs" is the per-layer
+# rotation shared by every slot. (The reference also has per-slot,
+# position-free recurrent leaves; the attn_mlp family has none.)
+POSITIONAL_CACHE_KEYS = frozenset(
+    {"k", "v", "k_words", "k_scale", "v_words", "v_scale"})
+SHARED_CACHE_KEYS = frozenset({"signs"})
+
+
+def scatter_slot(batched: DecodeState, single: DecodeState,
+                 slot: int) -> DecodeState:
+    """Write the batch-1 `single` into slot `slot` of `batched`, in place.
+
+    Positional leaves of `single` may be trimmed to a prefix length C' <= C
+    (see `extract_slot`); the slot's remaining C - C' positions are zeroed,
+    so the result is bitwise the state a fresh batch-1 prefill of the same
+    tokens would produce — the prefix-cache bit-exactness contract."""
+    slot = int(slot)
+    for name in POSITIONAL_CACHE_KEYS & batched.caches.keys():
+        b, s = batched.caches[name], single.caches[name]
+        n = s.shape[2]
+        b[:, slot, :n] = s[:, 0]
+        b[:, slot, n:] = 0
+    pos = batched.pos.clone()
+    pos[slot] = single.pos[0]
+    return DecodeState(caches=batched.caches, pos=pos)
+
+
+def extract_slot(state: DecodeState, slot: int, *,
+                 trim: bool = True) -> DecodeState:
+    """Slot `slot` of a batched state as a batch-1 state of COPIES.
+
+    With `trim` (the default) positional cache leaves keep only their
+    occupied columns — min(pos, C) of them; ring caches past their window
+    keep all C. `scatter_slot(init, extract_slot(st, i), j)` reproduces
+    slot i of `st` bitwise in slot j (zeros elsewhere). The shared rotation
+    signs are never written, so they are shared, not copied."""
+    slot = int(slot)
+    length = int(state.pos[slot])
+    caches = {}
+    for name, x in state.caches.items():
+        if name in SHARED_CACHE_KEYS:
+            caches[name] = x
+            continue
+        col = x[:, slot:slot + 1]
+        if trim:
+            col = col[:, :, :min(length, x.shape[2])]
+        caches[name] = col.clone()
+    return DecodeState(caches=caches, pos=state.pos[slot:slot + 1].clone())
+
+
+def expand_state(cfg: ModelConfig, single: DecodeState,
+                 max_seq: int) -> DecodeState:
+    """Inverse of `extract_slot`'s trim: a (possibly trimmed) batch-1 state
+    re-seated in fresh full-size caches for decoding up to `max_seq`."""
+    fresh = init_decode_state(cfg, 1, max_seq, device=single.pos.device)
+    return scatter_slot(fresh, single, 0)
+
+
+def prefill_into(cfg: ModelConfig, params: dict, batched: DecodeState,
+                 tokens: torch.Tensor, slot: int, max_seq: int):
+    """Cold admission: batch-1 prefill of `tokens` (S,) scattered into slot
+    `slot` of `batched`. Returns (new batched state, last-token logits
+    (V,))."""
+    logits, single = prefill(cfg, params, tokens[None, :], max_seq)
+    return scatter_slot(batched, single, slot), logits[0]
+
+
+def extend_into(cfg: ModelConfig, params: dict, batched: DecodeState,
+                entry: DecodeState, tokens: torch.Tensor, slot: int,
+                max_seq: int):
+    """Prefix admission: re-seat the (trimmed) batch-1 `entry` in fresh
+    full-size caches, decode the (S,) prompt continuation, and scatter the
+    result into slot `slot` of `batched`. `entry` is only read. Returns
+    (new batched state, last-token logits (V,))."""
+    single = expand_state(cfg, entry, max_seq)
+    logits, single = decode_tokens(cfg, params, single, tokens[None, :])
+    return scatter_slot(batched, single, slot), logits[0]
+
+
+def state_bytes(state: DecodeState) -> int:
+    """Device bytes held by the per-slot leaves of `state` (shared leaves —
+    the rotation signs — excluded): what a prefix-cache hit avoids
+    recomputing and rewriting."""
+    total = state.pos.numel() * state.pos.element_size()
+    for name, x in state.caches.items():
+        if name not in SHARED_CACHE_KEYS:
+            total += x.numel() * x.element_size()
+    return int(total)
+
+
+# ---------------------------------------------------------------------------
+# Prefill: run the training forward once, collect the caches
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            max_seq: int):
+    """tokens: (B, S) prompt → (last-token logits (B, V), DecodeState at S).
+
+    Runs the blockwise forward with `collect_kv`; when S exceeds the cache
+    (a sliding-window ring) only the last C positions are written, at ring
+    slots position % C, matching decode_step's insert rule. The quantized
+    cache is written through the same `kvquant.encode_entry` as decode."""
+    if not cfg.decode_supported:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    _require_attn_mlp(cfg)
+    dev = tokens.device
+    b, s = tokens.shape
+    c = cache_len(cfg, max_seq)
+    h = L.embed(tokens, params["embed"]).to(cfg.compute_dtype)
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+    state = init_decode_state(cfg, b, max_seq, device=dev)
+    if s <= c:
+        ring_slots = torch.arange(s, device=dev)           # contiguous
+    else:  # ring: the last c positions land at slots (s-c+i) % c
+        ring_slots = torch.remainder(torch.arange(s - c, s, device=dev), c)
+
+    caches = state.caches
+    for i in range(cfg.num_scanned):
+        h, (k, v) = block_forward(cfg, layer_params(params, i), h, positions,
+                                  collect_kv=True)
+        if s > c:
+            k, v = k[:, s - c:], v[:, s - c:]
+        if cfg.kv_quant_bits:
+            for side, val in (("k", k), ("v", v)):
+                words, scale = kvquant.encode_entry(val, caches["signs"][i],
+                                                    cfg.kv_quant_bits)
+                caches[f"{side}_words"][i][:, ring_slots] = words
+                caches[f"{side}_scale"][i][:, ring_slots] = scale
+        else:
+            caches["k"][i][:, ring_slots] = k.to(caches["k"].dtype)
+            caches["v"][i][:, ring_slots] = v.to(caches["v"].dtype)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    logits = (h[:, -1] @ params["head"]).to(torch.float32)
+    return logits, DecodeState(caches=caches,
+                               pos=torch.full((b,), s, dtype=torch.int32,
+                                              device=dev))

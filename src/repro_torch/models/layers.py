@@ -1,6 +1,7 @@
 """Transformer layer primitives (port of `repro.models.layers`): RMSNorm,
-embedding, RoPE, blockwise (online-softmax) attention, SwiGLU and the
-chunked cross-entropy. Written in plain torch ops with the reference's
+embedding, RoPE, blockwise (online-softmax) attention, single-token decode
+attention against an f32 cache, SwiGLU and the chunked cross-entropy.
+Written in plain torch ops with the reference's
 shapes, padding and operation order; attention keeps the reference's
 online softmax rather than calling `scaled_dot_product_attention`.
 """
@@ -34,8 +35,10 @@ def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
+    # torch.full, not torch.tensor: a host-to-device copy would make every
+    # call wait for the card to drain its queue
     return 1.0 / torch.pow(
-        torch.tensor(theta, dtype=torch.float32, device=device), exps)
+        torch.full((), theta, dtype=torch.float32, device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -113,6 +116,29 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.stack(outs)                        # (nq, B, K, G, bq, dh)
     out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, nq * block_q, h, dh)
     return out[:, :sq].to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, kv_len: torch.Tensor,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Single-token attention against a cache, GQA-native (the cache is
+    read once, never repeated per query head). q: (B, 1, H, dh); caches:
+    (B, S, K, dh); kv_len: (B,) number of valid positions."""
+    b, _, h, dh = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    qg = q.reshape(b, kh, g, dh).to(torch.float32)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg,
+                          k_cache.to(torch.float32)) * dh ** -0.5
+    pos = torch.arange(s, dtype=torch.int32, device=q.device)
+    valid = pos[None, :] < kv_len[:, None]
+    if window is not None:
+        valid = valid & (pos[None, :] >= (kv_len[:, None] - window))
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.to(torch.float32))
+    return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

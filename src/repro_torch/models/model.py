@@ -184,8 +184,10 @@ def _attn_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def block_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
-    """One attn_mlp block on one layer's weights `p`."""
+                  positions: torch.Tensor, collect_kv: bool = False):
+    """One attn_mlp block on one layer's weights `p`. Returns h, or with
+    `collect_kv` (prefill) the pair (h, (k, v)) of the layer's post-RoPE
+    keys and values, (B, S, K, dh) each."""
     _require_attn_mlp(cfg)
     b, s, _ = h.shape
     x = L.rmsnorm(h, p["attn_norm"], cfg.norm_eps)
@@ -194,11 +196,17 @@ def block_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
                               window=cfg.window_or_none())
     h = h + o.reshape(b, s, cfg.q_dim) @ p["wo"]
     x = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
-    return h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    h = h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    return (h, (k, v)) if collect_kv else h
 
 
 _BLOCK_KEYS = ("attn_norm", "mlp_norm", "w_down", "w_gate", "w_up", "wk",
                "wo", "wq", "wv")
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer i's block weights, views into the stacked (L, …) leaves."""
+    return {k: params["blocks"][k][i] for k in _BLOCK_KEYS}
 
 
 def forward_hidden(cfg: ModelConfig, params: dict, h: torch.Tensor,

@@ -6,13 +6,17 @@ machine without them (the repo's conftest imports JAX; skip it there):
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Payloads (words, scale bits), the FWHT and unpack_dequant must be bitwise
-equal to the plain versions; the EF residual within 4e-6 abs in f32 and
-4e-3 in bf16, the bounds of the JAX package's EF tests."""
+Payloads (words, scale bits), the FWHT, unpack_dequant and quantize_pack
+must be bitwise equal to the plain versions; the EF residual within 4e-6
+abs in f32 and 4e-3 in bf16, the bounds of the JAX package's EF tests; the
+KV-cache decode attention within rtol = atol = 2e-4, the bound the JAX
+package holds its Pallas kernel to (exponentials and sums run in another
+order)."""
 import pytest
 import torch
 
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import checks as C
 
 
 @pytest.fixture
@@ -39,8 +43,8 @@ def _inputs(rows, n, bits, seed, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits", [1, 2, 4, 8])
-@pytest.mark.parametrize("n", [32, 256, 8192])
+@pytest.mark.parametrize("bits", C.BITS)
+@pytest.mark.parametrize("n", C.CODEC_N)
 @pytest.mark.parametrize("mode", ["det", "dither", "mask", "rescale"])
 def test_cuda_kernels_match_plain(cuda, bits, n, mode):
     x, signs, dither, mask = _inputs(37, n, bits, n + bits, cuda)
@@ -75,5 +79,42 @@ def test_cuda_launch_counts_and_refusals(cuda):
     with pytest.raises(ValueError):
         ops.encode(torch.zeros(2, 64, device=cuda, dtype=torch.float64),
                    torch.ones(64, device=cuda), 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.quantize_pack(x, torch.ones(4, 1, device=cuda), 4)
+    words = ops.quantize_pack(x, torch.ones(4, 1, device=cuda), 4)
+    assert ops.launch_counts()["quantize_pack"] == 1
+    assert words.shape == (4, 8) and words.dtype == torch.int32
+    q, kw, ks, vw, vs, kv_len = C.attention_inputs(2, 16, 2, 4, 64, 8, 0,
+                                                   cuda)
+    ops.quant_decode_attention(q, kw, ks, vw, vs, kv_len, bits=8)
+    assert ops.launch_counts()["quant_decode_attention"] == 1
+    with pytest.raises(ValueError, match="bits"):
+        ops.quantize_pack(x, torch.ones(4, 1, device=cuda), 3)
+    with pytest.raises(ValueError, match="bits"):
+        ops.quant_decode_attention(q, kw, ks, vw, vs, kv_len, bits=3)
+    q96, kw96, ks96, vw96, vs96, len96 = C.attention_inputs(
+        2, 16, 2, 4, 96, 8, 0, cuda)
+    with pytest.raises(ValueError, match="power of 2"):
+        ops.quant_decode_attention(q96, kw96, ks96, vw96, vs96, len96, bits=8)
+    assert ops.launch_counts()["quantize_pack"] == 1
+    assert ops.launch_counts()["quant_decode_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", C.BITS)
+@pytest.mark.parametrize("n", C.PACK_N)
+def test_cuda_quantize_pack_matches_plain(cuda, bits, n):
+    """Bitwise, over rows that do not fill a block, scales above and below
+    the rows' maxima (so the clip acts) and a zero scale (the tiny guard)."""
+    C.check_quantize_pack(n, bits, cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", C.BITS)
+@pytest.mark.parametrize("dh", C.ATTN_DH)
+@pytest.mark.parametrize("c", C.ATTN_C)
+@pytest.mark.parametrize("g", C.ATTN_G)
+def test_cuda_quant_decode_attention_matches_plain(cuda, bits, dh, c, g):
+    """kv_len per batch row: 0 (uniform mean over all C), 1, C and a
+    ragged length; C not a multiple of the tile."""
+    C.check_quant_decode_attention(bits, dh, c, g, cuda)
+    torch.cuda.synchronize()

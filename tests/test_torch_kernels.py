@@ -19,6 +19,7 @@ from repro.kernels import quantpack as qp_kernel
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fwht import fwht_cuda
+from repro_torch.kernels.quantdecode import quant_decode_attention_cuda
 from repro_torch.kernels.quantencode import encode_cuda, encode_ef_cuda
 from repro_torch.kernels.quantpack import (quantize_pack_cuda,
                                            unpack_dequant_cuda)
@@ -189,13 +190,15 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         unpack_dequant_cuda(torch.zeros(4, 8, dtype=torch.int32),
                             torch.ones(4, 1), 4, 64)
-    assert ops.launch_counts() == {"encode": 0, "encode_ef": 0,
-                                   "unpack_dequant": 0, "fwht": 0}
-
-
-def test_quantize_pack_cuda_not_ported_names_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize_pack_cuda(torch.zeros(2, 32), torch.ones(2, 1), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_pack_cuda(x, torch.ones(4, 1), 4)
+    words = torch.zeros(1, 3, 2, 16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant_decode_attention_cuda(
+            torch.zeros(1, 2, 4, 64), words, torch.ones(1, 3, 2), words,
+            torch.ones(1, 3, 2), torch.ones(1, dtype=torch.int32), bits=8)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    assert len(ops.KERNELS) == 6
 
 
 def test_cpu_dispatch_counts_no_launch():
