@@ -5,23 +5,31 @@
 Phases (any failed check raises, and the script exits non-zero; each
 prints its seconds):
   1. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
-     in parallel) and print the build seconds;
+     in parallel); print the build seconds and each kernel's registers and
+     spilled bytes (ptxas);
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version on the card:
-     a. the codec kernels and the FWHT over bits {1,2,4,8} ×
-        N {32, 128, 256, 8192} × {plain, dither, mask} on unit-scale inputs;
+     a. the codec kernels and the FWHT, bitwise (words, scales, the f32 and
+        bf16 EF residuals, unpack_dequant, FWHT) over bits {1,2,4,8} ×
+        N {32, 64, ..., 8192} × {det, dither, mask, rescale} × rows
+        {1, 37, 1031}, with an all-zero row and rows whose only value or
+        maximum sits in the last lane, unaligned inputs in det mode; and the
+        FWHT alone at N {1, 2, 4, 8, 16};
      b. quantize_pack (bitwise) over bits × N {32, 128, 256, 8192, 12288},
         and quant_decode_attention (within 2e-4) over bits × dh {64, 128}
         × C {1, 100, 512, 1000} × G {1, 8} with kv_len {0, 1, C, ragged}
         and packed words over the whole int32 range;
      c. at the shapes the training run gives the codec kernels: check,
         time kernel, plain version and (for the FWHT) a dense x @ H matmul;
-     d. the FWHT (bitwise, with a dense x @ H beside it) at the serve run's
-        decode K/V, decode query and prefill K/V shapes (dh 128),
+     d. the FWHT (bitwise, with a dense x @ H beside it, and the host's
+        microseconds per call of both: 1000 calls, then one synchronize) at
+        the serve run's decode K/V, decode query and prefill K/V shapes
+        (dh 128),
         quantize_pack at its decode and prefill shapes and
         quant_decode_attention at the serve shape and a long-context shape:
         check and time kernel and plain version;
-     (the sweep grids and inputs of b come from repro_torch.kernels.checks,
+     (the sweep grids and inputs of a and b come from
+     repro_torch.kernels.checks,
      which tests/test_torch_cuda.py shares);
   4. train yi-6b at full width (d_model 4096, 32/4 heads, d_ff 11008,
      vocab 64000) cut to 4 of its 32 layers: 3 steps at the launcher's
@@ -69,9 +77,8 @@ OUT_DIR = ROOT / "chiprun_out"
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 
-# the sweep grids (bits, N, dh, C, G) and ATTN_TOL live in
+# the sweep grids (bits, N, rows, modes, dh, C, G) and ATTN_TOL live in
 # repro_torch/kernels/checks.py, shared with tests/test_torch_cuda.py
-CHECK_MODES = ("plain", "dither", "mask")
 EF_TOL = {torch.float32: 4e-6, torch.bfloat16: 4e-3}
 # the serve run: yi-6b, 32 layers, 8-bit NDSC KV cache
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_BITS, SERVE_NEW = 4, 512, 8, 16
@@ -126,6 +133,19 @@ def timed(fn, reps: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of fn: `calls` calls, then one
+    synchronize (the card finishes each call before the host issues the
+    next one when the host is the slower side)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e6
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
@@ -173,6 +193,8 @@ def time_serve_kernels(ops, ref, dev) -> dict:
             "ms": timed(lambda: ops.fwht(x), 20),
             "plain_ms": timed(lambda: ref.fwht(x), 3),
             "library_ms": timed(lambda: x @ h, 20),
+            "host_us": host_us(lambda: ops.fwht(x)),
+            "library_host_us": host_us(lambda: x @ h),
             "bound_ms": b, "bound_by": by, "max_abs_err": 0.0}
     for tag, shape in PACK_TIME_SHAPES:
         x = torch.randn(shape, generator=g, device=dev)
@@ -518,9 +540,12 @@ def main() -> int:
     # -- 1. build -----------------------------------------------------------
     build_s = _build.build()
     log(f"[build] {len(_build.SOURCES)} CUDA sources built in {build_s:.2f}s")
-    for name, text in _build.build_log.items():
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-        log(f"[build] {name}.cu: " + " | ".join(regs))
+    registers = {name: _build.register_report(name)
+                 for name in _build.build_log}
+    for name, report in registers.items():
+        log(f"[build] {name}.cu: " + " | ".join(
+            f"{fn} {regs} regs, {spill} B spilled"
+            for fn, regs, spill in report))
     clock.done("1 build")
 
     # -- 2. card --------------------------------------------------------------
@@ -532,54 +557,21 @@ def main() -> int:
     clock.done("2 card")
 
     # -- 3a. every kernel vs its plain version, sweep -------------------------
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
     err = {"encode": 0.0, "encode_ef": 0.0, "unpack_dequant": 0.0,
            "fwht": 0.0}
     configs_checked = 0
-    for bits in checks.BITS:
-        for n in checks.CODEC_N:
-            rows = 64
-            x = torch.randn(rows, n, generator=gen, device=dev)
-            x = x / x.abs().amax(-1, keepdim=True)          # unit scale
-            signs = torch.where(torch.rand(n, generator=gen, device=dev)
-                                < 0.5, 1.0, -1.0)
-            delta = 2.0 / 2 ** bits
-            for mode in CHECK_MODES:
-                dither = ((torch.rand(rows, n, generator=gen, device=dev)
-                           - 0.5) * delta if mode == "dither" else None)
-                mask = ((torch.rand(rows, 1, generator=gen, device=dev)
-                         < 0.6).float() if mode == "mask" else None)
-                kw, ks = ops.encode(x, signs, bits, dither=dither, mask=mask)
-                rw, rs = ref.encode(x, signs, bits, dither=dither, mask=mask)
-                if not (torch.equal(kw, rw) and torch.equal(
-                        ks.view(torch.int32), rs.view(torch.int32))):
-                    raise AssertionError(
-                        f"encode payload differs: bits={bits} n={n} {mode}")
-                for rdt, tol in EF_TOL.items():
-                    kw2, ks2, kr = ops.encode_ef(x, signs, bits, dither=dither,
-                                                 mask=mask, residual_dtype=rdt)
-                    _, _, rr = ref.encode_ef(x, signs, bits, dither=dither,
-                                             mask=mask, residual_dtype=rdt)
-                    e = float((kr - rr).abs().max())
-                    if not (torch.equal(kw2, rw) and torch.equal(ks2, rs)
-                            and e <= tol):
-                        raise AssertionError(
-                            f"encode_ef differs: bits={bits} n={n} {mode} "
-                            f"{rdt} residual err {e}")
-                    if rdt == torch.float32:
-                        err["encode_ef"] = max(err["encode_ef"], e)
-                ku = ops.unpack_dequant(kw, ks, bits, n)
-                ru = ref.unpack_dequant(kw, ks, bits, n)
-                kf, rf = ops.fwht(x), ref.fwht(x)
-                if not (torch.equal(ku, ru) and torch.equal(kf, rf)):
-                    raise AssertionError(
-                        f"unpack_dequant/fwht differ: bits={bits} n={n}")
-                configs_checked += 1
+    for rows in checks.CODEC_ROWS:
+        for bits in checks.BITS:
+            for n in checks.CODEC_N:
+                for mode in checks.CODEC_MODES:
+                    checks.check_codec(n, bits, mode, rows, dev)
+                    configs_checked += 1
+        for n in checks.FWHT_SMALL_N:
+            checks.check_fwht(n, rows, dev)
+            configs_checked += 1
     torch.cuda.synchronize()
-    log(f"[check] {configs_checked} configs: payloads and FWHT/unpack "
-        f"bitwise; EF residual max err f32 {err['encode_ef']:.3g} "
-        f"(tol 4e-6), bf16 within 4e-3")
+    log(f"[check] {configs_checked} configs: payloads, f32 and bf16 EF "
+        f"residuals, FWHT and unpack bitwise")
     clock.done("3a codec sweep")
 
     # -- 3b. the serving kernels vs their plain versions, sweep ---------------
@@ -832,7 +824,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-    record = {"card": card, "build_s": build_s, "kernels": kernels,
+    record = {"card": card, "build_s": build_s, "registers": registers,
+              "kernels": kernels,
               "train_x4": {"losses": losses, "step_s": secs,
                            "peak_mem_GB": peak_gb},
               "train_x1_dithered": {"losses": losses1, "step_s": secs1},

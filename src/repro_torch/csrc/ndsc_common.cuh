@@ -1,6 +1,7 @@
 // Shared pieces of the NDSC codec kernels (fwht.cu, quantpack.cu,
 // quantencode.cu, quantdecode.cu): the row tiling, the in-shared-memory
-// FWHT and the quantize-and-pack of one int32 word.
+// FWHT and the quantize-and-pack of one int32 word. The warp-resident FWHT
+// of fwht.cu and quantencode.cu is in warp_rows.cuh.
 //
 // Bitwise contract with the plain versions (repro_torch/kernels/ref.py):
 // every float operation on the payload path is a round-to-nearest
@@ -60,24 +61,29 @@ __device__ inline void fwht_tile(float* sm, int nrows, int log2n,
   __syncthreads();
 }
 
+// The R-bit code of v against denom = max(scale, FLT_MIN):
+// clip(floor((clip(v / denom, -1, 1) + 1) / (2 / 2^bits)), 0, 2^bits - 1),
+// as ref.quantize_pack. Dividing by the power of two 2 / 2^bits is
+// multiplying by 2^(bits-1): both are exact on [0, 2], so the product gives
+// the division's bits.
+__device__ inline unsigned quantize_code(float v, float denom, int bits) {
+  const float levels = static_cast<float>(1 << bits);
+  const float inv_delta = static_cast<float>(1 << (bits - 1));
+  const float q = fminf(fmaxf(__fdiv_rn(v, denom), -1.0f), 1.0f);
+  float id = floorf(__fmul_rn(__fadd_rn(q, 1.0f), inv_delta));
+  id = fminf(fmaxf(id, 0.0f), levels - 1.0f);
+  return static_cast<unsigned>(id);
+}
+
 // The k = 32/bits values v[0..k) quantized against `scale` and packed,
-// code j at bit j*bits: index clip(floor((clip(v / max(scale, FLT_MIN),
-// -1, 1) + 1) / (2 / 2^bits)), 0, 2^bits - 1), as ref.quantize_pack.
-// Dividing by the power of two 2 / 2^bits is multiplying by 2^(bits-1):
-// both are exact on [0, 2], so the product gives the division's bits.
+// code j at bit j*bits.
 __device__ inline unsigned quantize_pack_word(const float* v, float scale,
                                               int bits) {
   const int k = 32 / bits;
-  const float levels = static_cast<float>(1 << bits);
-  const float inv_delta = static_cast<float>(1 << (bits - 1));
   const float denom = fmaxf(scale, FLT_MIN);
   unsigned w = 0;
-  for (int j = 0; j < k; ++j) {
-    const float q = fminf(fmaxf(__fdiv_rn(v[j], denom), -1.0f), 1.0f);
-    float id = floorf(__fmul_rn(__fadd_rn(q, 1.0f), inv_delta));
-    id = fminf(fmaxf(id, 0.0f), levels - 1.0f);
-    w |= static_cast<unsigned>(id) << (j * bits);
-  }
+  for (int j = 0; j < k; ++j)
+    w |= quantize_code(v[j], denom, bits) << (j * bits);
   return w;
 }
 

@@ -16,8 +16,8 @@
 // Design, pack: one thread per output word, in a grid-stride loop over all
 // rows * words (64-bit indices, no cap on N), so word stores are coalesced
 // and the k inputs of a word are k neighbouring floats. The quantizer is
-// ndsc::quantize_pack_word, the same device function the fused encoder
-// runs. Unpack: a block owns max(1, 2048/n) whole rows; each thread writes
+// ndsc::quantize_pack_word, built on ndsc::quantize_code as the fused
+// encoder's is. Unpack: a block owns max(1, 2048/n) whole rows; each thread writes
 // one output float, so stores are coalesced, and neighbouring threads read
 // the same word, which the L1 cache serves.
 #include "ndsc_common.cuh"

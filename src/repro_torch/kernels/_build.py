@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -20,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fwht", "quantpack", "quantencode", "quantdecode")
-HEADERS = ("ndsc_common.cuh",)
+HEADERS = ("ndsc_common.cuh", "warp_rows.cuh")
 # No --use_fast_math: the payload path relies on IEEE rounding.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -118,3 +119,33 @@ def check(rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def _short_name(mangled: str) -> str:
+    """`encode_warp_kernel<8,4>` for an Itanium-mangled kernel name (its
+    last name component and its int template arguments)."""
+    rest = mangled[2:].lstrip("N")
+    name = mangled
+    while (d := re.match(r"\d+", rest)):
+        cut = len(d.group()) + int(d.group())
+        name, rest = rest[len(d.group()):cut], rest[cut:]
+    args = re.match(r"I((?:Li\d+E)+)E", rest)
+    if args:
+        name += "<" + ",".join(re.findall(r"\d+", args.group(1))) + ">"
+    return name
+
+
+def register_report(name: str) -> list:
+    """[(kernel, registers, spill bytes stored + loaded)] for each kernel of
+    library `name`, read from ptxas's report in its last build's log."""
+    out, fn, spill = [], None, 0
+    for line in build_log.get(name, "").splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            fn, spill = _short_name(m.group(1)), 0
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            out.append((fn, int(m.group(1)), spill))
+            fn = None
+    return out

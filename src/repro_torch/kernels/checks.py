@@ -1,4 +1,5 @@
-"""Kernel-vs-plain checks of the serving kernels, and the sweep grids.
+"""Kernel-vs-plain checks of the codec and serving kernels, and the sweep
+grids.
 
 `chip_smoke.py` and `tests/test_torch_cuda.py` hold the CUDA kernels
 against their plain versions with these same inputs and grids. On a CPU
@@ -12,13 +13,97 @@ import torch
 from repro_torch.kernels import ops, ref
 
 BITS = (1, 2, 4, 8)
-# N of the codec kernels and the FWHT: 128 is the serving path's dh
-CODEC_N = (32, 128, 256, 8192)
+# N of the codec kernels and the FWHT: every power of two from 32 to 8192,
+# so every V of the warp-resident kernels, every word that spans lanes
+# (V < 32/bits) and both sides of the register cap; 128 is the serving
+# path's dh, 256 the training chunk
+CODEC_N = tuple(2 ** i for i in range(5, 14))
+# the FWHT alone below 32 (the serve path's small heads, N < 4 in shared
+# memory)
+FWHT_SMALL_N = (1, 2, 4, 8, 16)
+# rows that leave a warp item or a block partly filled
+CODEC_ROWS = (1, 37, 1031)
+CODEC_MODES = ("det", "dither", "mask", "rescale")
 PACK_N = (32, 128, 256, 8192, 12288)
 ATTN_DH = (64, 128)
 ATTN_C = (1, 100, 512, 1000)
 ATTN_G = (1, 8)
 ATTN_TOL = 2e-4          # the JAX package's bound for its Pallas kernel
+
+
+def codec_inputs(rows, n, bits, seed, dev):
+    """x (rows, n), ±1 signs, a dither in [-Δ/2, Δ/2) and a 0/1 row mask.
+    With rows > 6, row 3 is all zero (the FLT_MIN guard), row 5 is zero but
+    for its last value, and row 6 embeds to a spike at its last value (the
+    row maximum in the last lane)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn(rows, n, generator=g, device=dev)
+    signs = torch.where(torch.rand(n, generator=g, device=dev) < 0.5,
+                        1.0, -1.0)
+    delta = 2.0 / 2 ** bits
+    dither = (torch.rand(rows, n, generator=g, device=dev) - 0.5) * delta
+    mask = (torch.rand(rows, 1, generator=g, device=dev) < 0.6).float()
+    if rows > 6:
+        x[3] = 0.0
+        x[5] = 0.0
+        x[5, -1] = 1.5
+        spike = torch.zeros(n, device=dev)
+        spike[-1] = 3.0
+        x[6] = ref.fwht(spike) * signs + 0.01 * x[6]
+    return x, signs, dither, mask
+
+
+def unaligned_copy(x):
+    """A contiguous copy of x whose data sit 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
+def check_fwht(n, rows, dev) -> None:
+    """The FWHT bitwise, from aligned and unaligned data."""
+    x = torch.randn(rows, n, generator=torch.Generator(device=dev)
+                    .manual_seed(n + rows), device=dev)
+    want = ref.fwht(x)
+    if not (torch.equal(ops.fwht(x), want)
+            and torch.equal(ops.fwht(unaligned_copy(x)), want)):
+        raise AssertionError(f"fwht differs: n={n} rows={rows}")
+
+
+def check_codec(n, bits, mode, rows, dev) -> None:
+    """encode, encode_ef (f32 and bf16 residuals), unpack_dequant and the
+    FWHT bitwise with their plain versions; mode is one of CODEC_MODES
+    ("rescale": dither, mask and rescale 0.6, the dithered unbiased path).
+    In "det" mode also from unaligned inputs."""
+    x, signs, dither, mask = codec_inputs(rows, n, bits, n + bits + rows,
+                                          dev)
+    d = dither if mode in ("dither", "rescale") else None
+    m = mask if mode in ("mask", "rescale") else None
+    rescale = 0.6 if mode == "rescale" else None
+    what = f"bits={bits} n={n} {mode} rows={rows}"
+    rw, rs = ref.encode(x, signs, bits, dither=d, mask=m)
+    resid = {rdt: ref.encode_ef(x, signs, bits, dither=d, mask=m,
+                                rescale=rescale, residual_dtype=rdt)[2]
+             for rdt in (torch.float32, torch.bfloat16)}
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    for xi in [x] + ([unaligned_copy(x)] if mode == "det" else []):
+        kw, ks = ops.encode(xi, signs, bits, dither=d, mask=m)
+        if not (torch.equal(kw, rw) and same(ks, rs)):
+            raise AssertionError(f"encode payload differs: {what}")
+        for rdt, rr in resid.items():
+            kw2, ks2, kr = ops.encode_ef(xi, signs, bits, dither=d, mask=m,
+                                         rescale=rescale, residual_dtype=rdt)
+            if not (torch.equal(kw2, rw) and same(ks2, rs) and same(kr, rr)):
+                raise AssertionError(f"encode_ef differs: {what} {rdt}")
+    if not torch.equal(ops.unpack_dequant(rw, rs, bits, n),
+                       ref.unpack_dequant(rw, rs, bits, n)):
+        raise AssertionError(f"unpack_dequant differs: {what}")
+    if not torch.equal(ops.fwht(x), ref.fwht(x)):
+        raise AssertionError(f"fwht differs: {what}")
 
 
 def pack_inputs(rows, n, seed, dev):

@@ -13,12 +13,13 @@ The dither and the keep mask are drawn outside the kernel (in
 """
 from __future__ import annotations
 
-import math
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fwht import MAX_N, _check_cuda_f32, _stream
+from repro_torch.kernels.fwht import (MAX_N, _check_cuda_f32, _stream,
+                                      aligned, call_on, f32, inv_sqrt)
 
 MIN_N = 32
 
@@ -26,6 +27,11 @@ MIN_N = 32
 def _ptr(t):
     """Device pointer of an optional tensor (None → a null pointer)."""
     return None if t is None else t.data_ptr()
+
+
+@functools.cache
+def _kernel():
+    return _build.library("quantencode").ndsc_encode
 
 
 def _launch(chunks, signs, bits, dither, mask, rescale, residual_dtype,
@@ -52,21 +58,20 @@ def _launch(chunks, signs, bits, dither, mask, rescale, residual_dtype,
     if residual_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"residual_dtype must be float32 or bfloat16, got "
                          f"{residual_dtype}")
+    chunks, signs = aligned(chunks), aligned(signs)
+    if dither is not None:
+        dither = aligned(dither)
     dev = chunks.device
     words = torch.empty(lead + (n * bits // 32,), dtype=torch.int32,
                         device=dev)
     scale = torch.empty(lead + (1,), dtype=torch.float32, device=dev)
     resid = torch.empty_like(chunks) if ef else None
     rows = chunks.numel() // n
-    fn = _build.library("quantencode").ndsc_encode
-    with torch.cuda.device(dev):
-        rc = fn(chunks.data_ptr(), signs.data_ptr(), _ptr(dither),
-                _ptr(mask), words.data_ptr(), scale.data_ptr(), _ptr(resid),
-                rows, n, bits,
-                float(torch.tensor(1.0 / math.sqrt(n), dtype=torch.float32)),
-                int(rescale is not None),
-                float(torch.tensor(rescale or 1.0, dtype=torch.float32)),
-                int(residual_dtype == torch.bfloat16), _stream(chunks))
+    rc = call_on(chunks, _kernel(), chunks.data_ptr(), signs.data_ptr(),
+                 _ptr(dither), _ptr(mask), words.data_ptr(), scale.data_ptr(),
+                 _ptr(resid), rows, n, bits, inv_sqrt(n),
+                 int(rescale is not None), f32(rescale or 1.0),
+                 int(residual_dtype == torch.bfloat16), _stream(chunks))
     _build.check(rc, "encode_ef" if ef else "encode")
     return words, scale, resid
 

@@ -6,16 +6,15 @@ machine without them (the repo's conftest imports JAX; skip it there):
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Payloads (words, scale bits), the FWHT, unpack_dequant and quantize_pack
-must be bitwise equal to the plain versions; the EF residual within 4e-6
-abs in f32 and 4e-3 in bf16, the bounds of the JAX package's EF tests; the
-KV-cache decode attention within rtol = atol = 2e-4, the bound the JAX
-package holds its Pallas kernel to (exponentials and sums run in another
-order)."""
+Payloads (words, scale bits), the EF residual in f32 and bf16, the FWHT,
+unpack_dequant and quantize_pack must be bitwise equal to the plain
+versions; the KV-cache decode attention within rtol = atol = 2e-4, the
+bound the JAX package holds its Pallas kernel to (exponentials and sums run
+in another order)."""
 import pytest
 import torch
 
-from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import checks as C
 
 
@@ -30,41 +29,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(rows, n, bits, seed, dev):
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    x = torch.randn(rows, n, generator=g, device=dev)
-    signs = torch.where(torch.rand(n, generator=g, device=dev) < 0.5,
-                        1.0, -1.0)
-    delta = 2.0 / 2 ** bits
-    dither = (torch.rand(rows, n, generator=g, device=dev) - 0.5) * delta
-    mask = (torch.rand(rows, 1, generator=g, device=dev) < 0.6).float()
-    return x, signs, dither, mask
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", C.CODEC_ROWS)
+@pytest.mark.parametrize("bits", C.BITS)
+@pytest.mark.parametrize("n", C.CODEC_N)
+@pytest.mark.parametrize("mode", C.CODEC_MODES)
+def test_cuda_kernels_match_plain(cuda, bits, n, mode, rows):
+    """encode, encode_ef (f32 and bf16 residuals), unpack_dequant and the
+    FWHT bitwise, over rows that leave a warp or a block partly filled, an
+    all-zero row and rows whose only value or maximum sits in the last
+    lane; in det mode also from unaligned inputs."""
+    C.check_codec(n, bits, mode, rows, cuda)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits", C.BITS)
-@pytest.mark.parametrize("n", C.CODEC_N)
-@pytest.mark.parametrize("mode", ["det", "dither", "mask", "rescale"])
-def test_cuda_kernels_match_plain(cuda, bits, n, mode):
-    x, signs, dither, mask = _inputs(37, n, bits, n + bits, cuda)
-    d = dither if mode in ("dither", "rescale") else None
-    m = mask if mode in ("mask", "rescale") else None
-    rescale = 0.6 if mode == "rescale" else None
-    kw, ks = ops.encode(x, signs, bits, dither=d, mask=m)
-    rw, rs = ref.encode(x, signs, bits, dither=d, mask=m)
-    assert torch.equal(kw, rw)
-    assert torch.equal(ks.view(torch.int32), rs.view(torch.int32))
-    for rdt, tol in ((torch.float32, 4e-6), (torch.bfloat16, 4e-3)):
-        kw2, ks2, kr = ops.encode_ef(x, signs, bits, dither=d, mask=m,
-                                     rescale=rescale, residual_dtype=rdt)
-        _, _, rr = ref.encode_ef(x, signs, bits, dither=d, mask=m,
-                                 rescale=rescale, residual_dtype=rdt)
-        assert torch.equal(kw2, rw) and torch.equal(ks2, rs)
-        assert float((kr - rr).abs().max()) <= tol
-    assert torch.equal(ops.unpack_dequant(kw, ks, bits, n),
-                       ref.unpack_dequant(kw, ks, bits, n))
-    assert torch.equal(ops.fwht(x), ref.fwht(x))
+@pytest.mark.parametrize("rows", C.CODEC_ROWS)
+@pytest.mark.parametrize("n", C.FWHT_SMALL_N)
+def test_cuda_fwht_small_n_matches_plain(cuda, n, rows):
+    C.check_fwht(n, rows, cuda)
     torch.cuda.synchronize()
 
 
