@@ -16,9 +16,12 @@ prints its seconds):
         maximum sits in the last lane, unaligned inputs in det mode; and the
         FWHT alone at N {1, 2, 4, 8, 16};
      b. quantize_pack (bitwise) over bits × N {32, 128, 256, 8192, 12288},
-        and quant_decode_attention (within 2e-4) over bits × dh {64, 128}
-        × C {1, 100, 512, 1000} × G {1, 8} with kv_len {0, 1, C, ragged}
-        and packed words over the whole int32 range;
+        and quant_decode_attention (within 2e-4) over bits × dh {32, 64, 128, 256}
+        × C {1, 100, 512, 1000, 4096, 4097} × G {1, 8} with kv_len {0, 1,
+        C, ragged} (so one split, several, a ragged last one and splits
+        wholly past kv_len) and packed words over the whole int32 range,
+        and at the (dh, G) the shared-memory tile kernel takes (16, 8),
+        (128, 12), (512, 2) × C {1, 100, 1000};
      c. at the shapes the training run gives the codec kernels: check,
         time kernel, plain version and (for the FWHT) a dense x @ H matmul;
      d. the FWHT (bitwise, with a dense x @ H beside it, and the host's
@@ -26,8 +29,10 @@ prints its seconds):
         the serve run's decode K/V, decode query and prefill K/V shapes
         (dh 128),
         quantize_pack at its decode and prefill shapes and
-        quant_decode_attention at the serve shape and a long-context shape:
-        check and time kernel and plain version;
+        quant_decode_attention at the serve shape (kv_len C and the serve
+        run's fill of 96, with the host's microseconds per call) and a
+        long-context shape: check and time kernel and plain version (and,
+        for quant_decode_attention, the device time under torch.profiler);
      (the sweep grids and inputs of a and b come from
      repro_torch.kernels.checks,
      which tests/test_torch_cuda.py shares);
@@ -84,12 +89,15 @@ EF_TOL = {torch.float32: 4e-6, torch.bfloat16: 4e-3}
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_BITS, SERVE_NEW = 4, 512, 8, 16
 PREFIX_LEN, SUFFIX_LEN, COLD_LEN = 64, 16, 80
 # timed shapes of the serving kernels: quantize_pack rows (B·K at decode,
-# 4·32768·4 at a prefill) of N = 128; quant_decode_attention (B, C) at the
-# serve run's shape and at a long context, yi-6b's K 4, G 8, dh 128
+# 4·32768·4 at a prefill) of N = 128; quant_decode_attention (B, C,
+# kv_len) at the serve run's shape, full and at the fill its decode steps
+# reach (under 96 positions), and at a long context, yi-6b's K 4, G 8,
+# dh 128
 PACK_TIME_SHAPES = (("decode", (SERVE_SLOTS, 1, 4, 128)),
                     ("prefill", (4, 32768, 4, 128)))
-ATTN_TIME_SHAPES = (("serve", (SERVE_SLOTS, SERVE_MAX_SEQ)),
-                    ("long", (32, 32768)))
+ATTN_TIME_SHAPES = (("serve", (SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_SEQ)),
+                    ("serve_kv96", (SERVE_SLOTS, SERVE_MAX_SEQ, 96)),
+                    ("long", (32, 32768, 32768)))
 # the FWHT on the serve path: K/V rows at a decode step (B, 1, K, dh), the
 # query rows (B, K, G, dh), and K/V rows of a cold 80-token prefill
 FWHT_TIME_SHAPES = (("decode_kv", (SERVE_SLOTS, 1, 4, 128)),
@@ -133,6 +141,26 @@ def timed(fn, reps: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def device_ms(fn, calls: int = 20):
+    """Device milliseconds per call of fn: the time of the kernels it
+    launches under torch.profiler, over `calls` calls, without the host's
+    launch time that a CUDA-event timing of one small call holds ("not
+    measured" if the profiler sees no device time)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return "not measured"
+    return sum(e.self_device_time_total for e in kern) / 1e3 / calls
+
+
 def host_us(fn, calls: int = 1000) -> float:
     """Host microseconds per call of fn: `calls` calls, then one
     synchronize (the card finishes each call before the host issues the
@@ -168,6 +196,11 @@ def check_serve_kernels(dev) -> tuple:
                     err = max(err, checks.check_quant_decode_attention(
                         bits, dh, c, g, dev))
                     n_cfg += 1
+        for dh, g in checks.ATTN_TILE_SHAPES:
+            for c in checks.ATTN_TILE_C if dh * bits % 32 == 0 else ():
+                err = max(err, checks.check_quant_decode_attention(
+                    bits, dh, c, g, dev))
+                n_cfg += 1
     torch.cuda.synchronize()
     return n_cfg, err
 
@@ -176,7 +209,8 @@ def time_serve_kernels(ops, ref, dev) -> dict:
     """The serving kernels at the serve run's shapes, checked, timed and
     bounded: the FWHT (bitwise; dense x @ H as the library call) at
     FWHT_TIME_SHAPES, kernels 5 and 6 at PACK_TIME_SHAPES and
-    ATTN_TIME_SHAPES, 8 bits, every cache position valid."""
+    ATTN_TIME_SHAPES, 8 bits; kernel 6's device time under the profiler,
+    and the host's microseconds per call at the serve shape."""
     from repro_torch.kernels import checks
     out = {}
     g = torch.Generator(device=dev)
@@ -215,9 +249,9 @@ def time_serve_kernels(ops, ref, dev) -> dict:
         del x, scale
     kh, gq, dh = 4, 8, 128
     wpv = dh * SERVE_BITS // 32
-    for tag, (b_, c) in ATTN_TIME_SHAPES:
+    for tag, (b_, c, n) in ATTN_TIME_SHAPES:
         args = checks.attention_inputs(b_, c, kh, gq, dh, SERVE_BITS, c,
-                                       dev, lens=[c] * b_)
+                                       dev, lens=[n] * b_)
         got = ops.quant_decode_attention(*args, bits=SERVE_BITS)
         want = ref.quant_decode_attention(*args, bits=SERVE_BITS)
         e = float((got - want).abs().max())
@@ -226,20 +260,25 @@ def time_serve_kernels(ops, ref, dev) -> dict:
             raise AssertionError(f"quant_decode_attention differs at "
                                  f"B={b_} C={c}: {e}")
         del got, want
-        visited = b_ * c                  # kv_len = C: every position
+        visited = b_ * n                  # kv_len = n <= C positions
         # read K and V words + scales of each visited (position, head),
         # q once, write out; two products over G rows + the unpack of K, V
         nbytes = visited * kh * (4 * wpv + 4) * 2 + 2 * b_ * kh * gq * dh * 4
         flops = 4 * kh * gq * visited * dh + 2 * 4 * visited * kh * dh
         bnd, by = bound_ms(nbytes, flops)
         out[f"quant_decode_attention/{tag}"] = {
-            "shape": [b_, c, kh, gq, dh],
+            "shape": [b_, c, kh, gq, dh], "kv_len": n,
             "ms": timed(lambda: ops.quant_decode_attention(
                 *args, bits=SERVE_BITS), 20),
             "plain_ms": timed(lambda: ref.quant_decode_attention(
                 *args, bits=SERVE_BITS), 3),
             "library_ms": None, "bound_ms": bnd, "bound_by": by,
             "max_abs_err": e}
+        out[f"quant_decode_attention/{tag}"]["device_ms"] = device_ms(
+            lambda: ops.quant_decode_attention(*args, bits=SERVE_BITS))
+        if tag == "serve":
+            out[f"quant_decode_attention/{tag}"]["host_us"] = host_us(
+                lambda: ops.quant_decode_attention(*args, bits=SERVE_BITS))
         del args
     torch.cuda.empty_cache()
     return out

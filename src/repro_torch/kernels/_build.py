@@ -42,8 +42,9 @@ _SIGNATURES = {
                         _F, _I, _P],
     },
     "quantdecode": {
-        "ndsc_quant_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                        _I, _I, _I, _I, _I, _I, _F, _P],
+        "ndsc_quant_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                        _F, _P],
     },
 }
 

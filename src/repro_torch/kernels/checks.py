@@ -25,9 +25,15 @@ FWHT_SMALL_N = (1, 2, 4, 8, 16)
 CODEC_ROWS = (1, 37, 1031)
 CODEC_MODES = ("det", "dither", "mask", "rescale")
 PACK_N = (32, 128, 256, 8192, 12288)
-ATTN_DH = (64, 128)
-ATTN_C = (1, 100, 512, 1000)
+ATTN_DH = (32, 64, 128, 256)   # every dh of the warp-resident kernel
+# C of one tile, of a ragged last split, of several whole splits, and
+# 4096 / 4097 (a last split of one position) at 8 (b, kv-head) pairs
+ATTN_C = (1, 100, 512, 1000, 4096, 4097)
 ATTN_G = (1, 8)
+# (dh, G) outside the warp-resident kernel's G <= 8, 32 <= dh <= 256, which
+# run the shared-memory tile kernel, at C of one tile and of several splits
+ATTN_TILE_SHAPES = ((16, 8), (128, 12), (512, 2))
+ATTN_TILE_C = (1, 100, 1000)
 ATTN_TOL = 2e-4          # the JAX package's bound for its Pallas kernel
 
 

@@ -101,3 +101,16 @@ def test_cuda_quant_decode_attention_matches_plain(cuda, bits, dh, c, g):
     ragged length; C not a multiple of the tile."""
     C.check_quant_decode_attention(bits, dh, c, g, cuda)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,dh,g", [
+    (bits, dh, g) for bits in C.BITS for dh, g in C.ATTN_TILE_SHAPES
+    if dh * bits % 32 == 0])
+@pytest.mark.parametrize("c", C.ATTN_TILE_C)
+def test_cuda_quant_decode_attention_tile_path_matches_plain(cuda, bits, dh,
+                                                             g, c):
+    """The shapes the shared-memory tile kernel takes (dh < 32, G > 8,
+    dh > 256), split and combined like the warp-resident kernel's."""
+    C.check_quant_decode_attention(bits, dh, c, g, cuda)
+    torch.cuda.synchronize()
