@@ -13,8 +13,12 @@ prints its seconds):
         bf16 EF residuals, unpack_dequant, FWHT) over bits {1,2,4,8} ×
         N {32, 64, ..., 8192} × {det, dither, mask, rescale} × rows
         {1, 37, 1031}, with an all-zero row and rows whose only value or
-        maximum sits in the last lane, unaligned inputs in det mode; and the
-        FWHT alone at N {1, 2, 4, 8, 16};
+        maximum sits in the last lane, unaligned inputs in det mode; the
+        FWHT alone at N {1, 2, 4, 8, 16}; and unpack_dequant alone on words
+        over the whole int32 range, aligned and not, over bits × rows ×
+        (n, N) {whole rows of 32, 256, 8192 (the flat path); whole rows
+        of 96, 12288 (a wpr not a power of two) and 255, 128 and 1 of 256
+        or 32 (trimmed rows), the row path};
      b. quantize_pack (bitwise) over bits × N {32, 128, 256, 8192, 12288},
         and quant_decode_attention (within 2e-4) over bits × dh {32, 64, 128, 256}
         × C {1, 100, 512, 1000, 4096, 4097} × G {1, 8} with kv_len {0, 1,
@@ -23,12 +27,16 @@ prints its seconds):
         and at the (dh, G) the shared-memory tile kernel takes (16, 8),
         (128, 12), (512, 2) × C {1, 100, 1000};
      c. at the shapes the training run gives the codec kernels: check,
-        time kernel, plain version and (for the FWHT) a dense x @ H matmul;
+        time kernel, plain version and (for the FWHT) a dense x @ H matmul,
+        and beside unpack_dequant `zero_()` of its outputs ("zero_ms": the
+        card's own write stream of those bytes);
      d. the FWHT (bitwise, with a dense x @ H beside it, and the host's
         microseconds per call of both: 1000 calls, then one synchronize) at
         the serve run's decode K/V, decode query and prefill K/V shapes
         (dh 128),
-        quantize_pack at its decode and prefill shapes and
+        quantize_pack at its decode and prefill shapes (at decode also
+        its device time under torch.profiler and the host's microseconds
+        per call) and
         quant_decode_attention at the serve shape (kv_len C and the serve
         run's fill of 96, with the host's microseconds per call) and a
         long-context shape: check and time kernel and plain version (and,
@@ -246,6 +254,11 @@ def time_serve_kernels(ops, ref, dev) -> dict:
                                                         SERVE_BITS), 3),
             "library_ms": None, "bound_ms": b, "bound_by": by,
             "max_abs_err": 0.0}
+        if tag == "decode":
+            out[f"quantize_pack/{tag}"]["device_ms"] = device_ms(
+                lambda: ops.quantize_pack(x, scale, SERVE_BITS))
+            out[f"quantize_pack/{tag}"]["host_us"] = host_us(
+                lambda: ops.quantize_pack(x, scale, SERVE_BITS))
         del x, scale
     kh, gq, dh = 4, 8, 128
     wpv = dh * SERVE_BITS // 32
@@ -608,6 +621,10 @@ def main() -> int:
         for n in checks.FWHT_SMALL_N:
             checks.check_fwht(n, rows, dev)
             configs_checked += 1
+        for bits in checks.BITS:
+            for n, full_n in checks.UNPACK_SHAPES:
+                checks.check_unpack(bits, n, full_n, rows, dev)
+                configs_checked += 1
     torch.cuda.synchronize()
     log(f"[check] {configs_checked} configs: payloads, f32 and bf16 EF "
         f"residuals, FWHT and unpack bitwise")
@@ -683,6 +700,8 @@ def main() -> int:
     t["fwht"] = (timed(lambda: [ops.fwht(x) for x in decoded]),
                  timed(lambda: [ref.fwht(x) for x in decoded], 3),
                  timed(lambda: [x @ h for x in decoded]))
+    # the card's own write stream of unpack_dequant's outputs
+    zero_ms = timed(lambda: [x.zero_() for x in decoded])
     bounds = {
         # read u, write words + scale + residual; 2 FWHTs, quantize, decode
         "encode_ef": bound_ms(coords4 * (4 + bits / 8 + 4) + rows4 * 4,
@@ -727,6 +746,8 @@ def main() -> int:
         results[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": b, "bound_by": by,
                          "max_abs_err": err[name]}
+        if name == "unpack_dequant":
+            results[name]["zero_ms"] = zero_ms
         log(json.dumps({"kernel": name, **results[name],
                         "shapes": "yi-6b x1 layer, dithered, keep 0.5"
                         if name == "encode" else "yi-6b x4 layers"}))

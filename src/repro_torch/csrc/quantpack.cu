@@ -17,9 +17,21 @@
 // rows * words (64-bit indices, no cap on N), so word stores are coalesced
 // and the k inputs of a word are k neighbouring floats. The quantizer is
 // ndsc::quantize_pack_word, built on ndsc::quantize_code as the fused
-// encoder's is. Unpack: a block owns max(1, 2048/n) whole rows; each thread writes
-// one output float, so stores are coalesced, and neighbouring threads read
-// the same word, which the L1 cache serves.
+// encoder's is.
+// Design, unpack: a write stream, 4 B out for every R/8 B in. Where rows
+// are whole (n == wpr * 32/R, every decode of the codec) and wpr is a
+// power of two (every wpr of the port's paths: the chunk is one, and so is
+// R), the output is one flat stream in which word w's k = 32/R codes are
+// floats [w*k, w*k + k). Each thread owns one float4 of it: it loads the
+// word (the k/4 lanes that share a word load it in one instruction) and
+// the row's scale, and stores 16 B, so a warp writes 512 contiguous bytes.
+// R is a template argument, so the word index, the code shifts and the
+// mask are constants; the row is the word index shifted by log2(wpr). A
+// thread per word (k/4 float4 stores 4k bytes apart) and a grid capped at
+// a few blocks per SM (a grid-stride loop) were both slower on the card.
+// Other rows (trimmed, n < wpr * k, or wpr not a power of two) take a
+// row-wise kernel: a block owns max(1, 2048/n) whole rows and each thread
+// writes one output float.
 #include "ndsc_common.cuh"
 
 namespace {
@@ -38,10 +50,38 @@ __global__ void quantize_pack_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void unpack_dequant_kernel(const int32_t* __restrict__ words,
-                                      const float* __restrict__ scale,
-                                      float* __restrict__ out, int64_t rows,
-                                      int wpr, int n, int bits) {
+// Flat path: thread f stores float4 f of the output, codes
+// 4*(f % F4) .. +3 of word f / F4 (F4 = 8/R float4s a word), with the
+// scale of row (word >> wpr_shift).
+template <int BITS>
+__global__ void unpack_flat_kernel(const uint32_t* __restrict__ words,
+                                   const float* __restrict__ scale,
+                                   float4* __restrict__ out, int64_t total_f4,
+                                   int wpr_shift) {
+  constexpr int kLog2F4 = BITS == 1 ? 3 : BITS == 2 ? 2 : BITS == 4 ? 1 : 0;
+  constexpr unsigned kMask = (1u << BITS) - 1u;
+  const int64_t f =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (f >= total_f4) return;
+  const float il = ndsc::inv_levels(BITS);
+  const int64_t wi = f >> kLog2F4;
+  const unsigned w = __ldg(words + wi);
+  const float s = __ldg(scale + (wi >> wpr_shift));
+  const int sh = static_cast<int>(f & ((1 << kLog2F4) - 1)) * 4 * BITS;
+  float4 v;
+  v.x = ndsc::dequant((w >> sh) & kMask, il, s);
+  v.y = ndsc::dequant((w >> (sh + BITS)) & kMask, il, s);
+  v.z = ndsc::dequant((w >> (sh + 2 * BITS)) & kMask, il, s);
+  v.w = ndsc::dequant((w >> (sh + 3 * BITS)) & kMask, il, s);
+  out[f] = v;
+}
+
+// Other rows (trimmed, n < wpr * 32/bits, or wpr not a power of two): a
+// block owns rpb whole rows, a thread writes one float.
+__global__ void unpack_rows_kernel(const int32_t* __restrict__ words,
+                                   const float* __restrict__ scale,
+                                   float* __restrict__ out, int64_t rows,
+                                   int wpr, int n, int bits) {
   const int rpb = ndsc::rows_per_block(n);
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rpb;
   const int nrows = static_cast<int>(rows - r0 < rpb ? rows - r0 : rpb);
@@ -58,6 +98,15 @@ __global__ void unpack_dequant_kernel(const int32_t* __restrict__ words,
     const unsigned idx = (w >> ((j % k) * bits)) & code_mask;
     ob[e] = ndsc::dequant(idx, inv_levels, sb[r]);
   }
+}
+
+template <int BITS>
+void launch_flat(const int32_t* words, const float* scale, float* out,
+                 int64_t total_f4, int wpr_shift, unsigned blocks,
+                 cudaStream_t stream) {
+  unpack_flat_kernel<BITS><<<blocks, ndsc::kThreads, 0, stream>>>(
+      reinterpret_cast<const uint32_t*>(words), scale,
+      reinterpret_cast<float4*>(out), total_f4, wpr_shift);
 }
 
 bool valid_bits(int bits) {
@@ -84,17 +133,41 @@ extern "C" int ndsc_quantize_pack(const float* x, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-// words: (rows, wpr) int32; scale: (rows,) float32; out: (rows, n) float32;
-// n <= wpr * 32 / bits. Returns cudaGetLastError().
-extern "C" int ndsc_unpack_dequant(const int32_t* words, const float* scale,
-                                   float* out, int64_t rows, int wpr, int n,
-                                   int bits, cudaStream_t stream) {
+// Flat path. words: (rows, wpr) int32, wpr a power of two; scale: (rows,)
+// float32; out: (rows, wpr * 32/bits) float32, 16-byte aligned. One
+// float4 per thread. Returns cudaGetLastError().
+extern "C" int ndsc_unpack_flat(const int32_t* words, const float* scale,
+                                float* out, int64_t rows, int wpr, int bits,
+                                cudaStream_t stream) {
+  if (!valid_bits(bits) || wpr <= 0 || !ndsc::is_pow2(wpr))
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) % 16) return cudaErrorMisalignedAddress;
+  const int64_t total_f4 = rows * wpr * (8 / bits);
+  if (total_f4 == 0) return cudaSuccess;
+  const int64_t blocks = (total_f4 + ndsc::kThreads - 1) / ndsc::kThreads;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  const unsigned b = static_cast<unsigned>(blocks);
+  const int sh = ndsc::log2_int(wpr);
+  switch (bits) {
+    case 1: launch_flat<1>(words, scale, out, total_f4, sh, b, stream); break;
+    case 2: launch_flat<2>(words, scale, out, total_f4, sh, b, stream); break;
+    case 4: launch_flat<4>(words, scale, out, total_f4, sh, b, stream); break;
+    default: launch_flat<8>(words, scale, out, total_f4, sh, b, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Other rows. words: (rows, wpr) int32; scale: (rows,) float32; out:
+// (rows, n) float32; n <= wpr * 32 / bits. Returns cudaGetLastError().
+extern "C" int ndsc_unpack_rows(const int32_t* words, const float* scale,
+                                float* out, int64_t rows, int wpr, int n,
+                                int bits, cudaStream_t stream) {
   if (!valid_bits(bits)) return cudaErrorInvalidValue;
   if (n <= 0 || n > wpr * (32 / bits)) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
   const int rpb = ndsc::rows_per_block(n);
   const int64_t blocks = (rows + rpb - 1) / rpb;
-  unpack_dequant_kernel<<<static_cast<unsigned>(blocks), ndsc::kThreads, 0,
-                          stream>>>(words, scale, out, rows, wpr, n, bits);
+  unpack_rows_kernel<<<static_cast<unsigned>(blocks), ndsc::kThreads, 0,
+                       stream>>>(words, scale, out, rows, wpr, n, bits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,7 +34,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "fwht": {"ndsc_fwht": [_P, _P, _I64, _I, _F, _P]},
     "quantpack": {
-        "ndsc_unpack_dequant": [_P, _P, _P, _I64, _I, _I, _I, _P],
+        "ndsc_unpack_flat": [_P, _P, _P, _I64, _I, _I, _P],
+        "ndsc_unpack_rows": [_P, _P, _P, _I64, _I, _I, _I, _P],
         "ndsc_quantize_pack": [_P, _P, _P, _I64, _I, _I, _P],
     },
     "quantencode": {

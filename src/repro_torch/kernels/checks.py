@@ -25,6 +25,12 @@ FWHT_SMALL_N = (1, 2, 4, 8, 16)
 CODEC_ROWS = (1, 37, 1031)
 CODEC_MODES = ("det", "dither", "mask", "rescale")
 PACK_N = (32, 128, 256, 8192, 12288)
+# unpack_dequant beyond the encoder's payloads: (n, N), n values kept of
+# rows of N = wpr·32/bits codes. Whole rows at a power-of-two wpr (the
+# flat path); whole rows at wpr = 3·2^j (96, 12288) and trimmed rows by
+# one value, by half and to one value (the row path)
+UNPACK_SHAPES = ((32, 32), (256, 256), (8192, 8192), (96, 96),
+                 (12288, 12288), (255, 256), (128, 256), (1, 32))
 ATTN_DH = (32, 64, 128, 256)   # every dh of the warp-resident kernel
 # C of one tile, of a ragged last split, of several whole splits, and
 # 4096 / 4097 (a last split of one position) at 8 (b, kv-head) pairs
@@ -110,6 +116,27 @@ def check_codec(n, bits, mode, rows, dev) -> None:
         raise AssertionError(f"unpack_dequant differs: {what}")
     if not torch.equal(ops.fwht(x), ref.fwht(x)):
         raise AssertionError(f"fwht differs: {what}")
+
+
+def check_unpack(bits, n, full_n, rows, dev) -> None:
+    """unpack_dequant bitwise with its plain version on words drawn over
+    the whole int32 range (every code of every lane), from aligned and
+    unaligned words; row 3 has scale 0."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + full_n + bits + rows)
+    wpr = full_n * bits // 32
+    words = torch.randint(-2 ** 31, 2 ** 31, (rows, wpr), generator=g,
+                          device=dev, dtype=torch.int64).to(torch.int32)
+    scale = torch.rand(rows, 1, generator=g, device=dev) + 0.1
+    if rows > 3:
+        scale[3] = 0.0
+    want = ref.unpack_dequant(words, scale, bits, n)
+    got = [ops.unpack_dequant(words, scale, bits, n),
+           ops.unpack_dequant(unaligned_copy(words), scale, bits, n)]
+    for i, out in enumerate(got):
+        if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"unpack_dequant differs: bits={bits} n={n} "
+                                 f"N={full_n} rows={rows} case {i}")
 
 
 def pack_inputs(rows, n, seed, dev):

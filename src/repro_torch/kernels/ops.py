@@ -43,6 +43,15 @@ def _opt(t):
     return None if t is None else t.contiguous()
 
 
+def _row_scale(scale: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """scale as one contiguous value per row of t, (..., 1); broadcast
+    only where its lead dims differ from t's (a view costs host time on
+    the serve path's small calls)."""
+    if scale.shape[:-1] != t.shape[:-1]:
+        scale = scale.expand(t.shape[:-1] + (1,))
+    return scale.contiguous()
+
+
 def fwht(x: torch.Tensor) -> torch.Tensor:
     """Normalized Walsh–Hadamard transform along the last axis."""
     if _on_cpu(x):
@@ -60,8 +69,7 @@ def quantize_pack(x: torch.Tensor, scale: torch.Tensor,
     """Uniform quantize + bit-pack to int32 words (bits ∈ {1,2,4,8})."""
     if _on_cpu(x):
         return _ref.quantize_pack(x, scale, bits)
-    scale = scale.expand(tuple(x.shape[:-1]) + (1,))
-    return quantize_pack_cuda(x.contiguous(), scale.contiguous(), bits)
+    return quantize_pack_cuda(x.contiguous(), _row_scale(scale, x), bits)
 
 
 def unpack_dequant(words: torch.Tensor, scale: torch.Tensor, bits: int,
@@ -69,8 +77,8 @@ def unpack_dequant(words: torch.Tensor, scale: torch.Tensor, bits: int,
     """Unpack + dequantize (inverse of quantize_pack)."""
     if _on_cpu(words):
         return _ref.unpack_dequant(words, scale, bits, n)
-    scale = scale.expand(tuple(words.shape[:-1]) + (1,))
-    return unpack_dequant_cuda(words.contiguous(), scale.contiguous(), bits, n)
+    return unpack_dequant_cuda(words.contiguous(), _row_scale(scale, words),
+                               bits, n)
 
 
 def encode(chunks: torch.Tensor, signs: torch.Tensor, bits: int, *,

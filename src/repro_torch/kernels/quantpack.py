@@ -4,19 +4,51 @@ dequantize, of NDSC words (`csrc/quantpack.cu`).
 Counterparts of `repro.kernels.quantpack.quantize_pack_pallas` and
 `unpack_dequant_pallas`; bitwise equal to `ref.quantize_pack` and
 `ref.unpack_dequant`. `quantize_pack` has no cap on N (the TPU kernel has
-none either); N must be a multiple of 32/bits.
+none either); N must be a multiple of 32/bits. `unpack_dequant` streams
+whole rows flat where wpr is a power of two (`unpack_path`), other rows
+row by row.
+
+Both wrappers take the FWHT's launch path (`kernels/fwht.py`): the ctypes
+functions are cached, the device guard is entered only when the tensor is
+not on the current card, and the output is the only allocation.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fwht import _check_cuda_f32, _stream
+from repro_torch.kernels.fwht import _check_cuda_f32, _stream, call_on
 
 
 def _check_bits(bits: int) -> None:
     if bits not in (1, 2, 4, 8):
         raise ValueError(f"bits must be in {{1,2,4,8}}, got {bits}")
+
+
+@functools.cache
+def _unpack_flat():
+    return _build.library("quantpack").ndsc_unpack_flat
+
+
+@functools.cache
+def _unpack_rows():
+    return _build.library("quantpack").ndsc_unpack_rows
+
+
+@functools.cache
+def _quantize_pack():
+    return _build.library("quantpack").ndsc_quantize_pack
+
+
+def unpack_path(n: int, wpr: int, bits: int) -> str:
+    """"flat" where rows are whole (n == wpr·32/bits) and wpr is a power of
+    two (every call of the port's paths): the output is one stream, a
+    float4 per thread. "rows" otherwise: trimmed rows, or a wpr whose row
+    index would need a division."""
+    whole = n == wpr * (32 // bits)
+    return "flat" if whole and wpr & (wpr - 1) == 0 else "rows"
 
 
 def unpack_dequant_cuda(words: torch.Tensor, scale: torch.Tensor, bits: int,
@@ -37,11 +69,15 @@ def unpack_dequant_cuda(words: torch.Tensor, scale: torch.Tensor, bits: int,
     if not 0 < n <= wpr * (32 // bits):
         raise ValueError(f"n={n} does not fit {wpr} words of {bits}-bit codes")
     out = torch.empty(lead + (n,), dtype=torch.float32, device=words.device)
-    rows = words.numel() // wpr if wpr else 0
-    fn = _build.library("quantpack").ndsc_unpack_dequant
-    with torch.cuda.device(words.device):
-        rc = fn(words.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, wpr,
-                n, bits, _stream(words))
+    rows = words.numel() // wpr
+    if unpack_path(n, wpr, bits) == "flat":
+        rc = call_on(words, _unpack_flat(), words.data_ptr(),
+                     scale.data_ptr(), out.data_ptr(), rows, wpr, bits,
+                     _stream(words))
+    else:
+        rc = call_on(words, _unpack_rows(), words.data_ptr(),
+                     scale.data_ptr(), out.data_ptr(), rows, wpr, n, bits,
+                     _stream(words))
     _build.check(rc, "unpack_dequant")
     unpack_dequant_cuda.launches += 1
     return out
@@ -62,10 +98,9 @@ def quantize_pack_cuda(x: torch.Tensor, scale: torch.Tensor,
     if tuple(scale.shape) != lead + (1,):
         raise ValueError(f"scale shape {tuple(scale.shape)} != {lead + (1,)}")
     words = torch.empty(lead + (n // k,), dtype=torch.int32, device=x.device)
-    fn = _build.library("quantpack").ndsc_quantize_pack
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), scale.data_ptr(), words.data_ptr(),
-                x.numel() // n, n, bits, _stream(x))
+    rc = call_on(x, _quantize_pack(), x.data_ptr(),
+                 scale.data_ptr(), words.data_ptr(), x.numel() // n, n, bits,
+                 _stream(x))
     _build.check(rc, "quantize_pack")
     quantize_pack_cuda.launches += 1
     return words

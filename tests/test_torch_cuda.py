@@ -7,10 +7,11 @@ machine without them (the repo's conftest imports JAX; skip it there):
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Payloads (words, scale bits), the EF residual in f32 and bf16, the FWHT,
-unpack_dequant and quantize_pack must be bitwise equal to the plain
-versions; the KV-cache decode attention within rtol = atol = 2e-4, the
-bound the JAX package holds its Pallas kernel to (exponentials and sums run
-in another order)."""
+unpack_dequant (also on whole-range words, unaligned, trimmed) and
+quantize_pack must be bitwise equal to the plain versions; the KV-cache
+decode attention within rtol = atol = 2e-4, the bound the JAX package
+holds its Pallas kernel to (exponentials and sums run in another
+order)."""
 import pytest
 import torch
 
@@ -79,6 +80,19 @@ def test_cuda_launch_counts_and_refusals(cuda):
         ops.quant_decode_attention(q96, kw96, ks96, vw96, vs96, len96, bits=8)
     assert ops.launch_counts()["quantize_pack"] == 1
     assert ops.launch_counts()["quant_decode_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", C.CODEC_ROWS)
+@pytest.mark.parametrize("bits", C.BITS)
+@pytest.mark.parametrize("n,full_n", C.UNPACK_SHAPES)
+def test_cuda_unpack_dequant_matches_plain(cuda, bits, n, full_n, rows):
+    """Bitwise over words drawn from the whole int32 range, aligned and
+    unaligned: whole rows at a power-of-two wpr (the flat path); whole rows
+    at a non-power-of-two wpr and trimmed rows (the row path); rows that
+    leave the last block partly filled."""
+    C.check_unpack(bits, n, full_n, rows, cuda)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

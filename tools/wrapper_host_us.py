@@ -1,14 +1,21 @@
-"""Host microseconds per call of the FWHT and encoder wrappers on one card.
+"""Host microseconds per call of the FWHT, encoder and quantpack wrappers
+on one card.
 
-    python3 tools/wrapper_host_us.py [SRC]
+    python3 tools/wrapper_host_us.py [SRC ...]
 
-SRC is the directory that holds the `repro_torch` package to time (default:
-this checkout's `src`), so two trees can be timed in turns on one card. For
-the FWHT at the serve path's shapes (chip_smoke.FWHT_TIME_SHAPES), for a
-dense `x @ H` at the same shapes, and for encode_ef on 16 rows of 256: 1000
-calls, then one synchronize; the median of 5 such runs. Prints one JSON
-object. At these sizes the card finishes a call before the host issues the
-next, so the figure is the host's cost of a call.
+Each SRC is a directory that holds a `repro_torch` package to time
+(default: this checkout's `src`). All trees are loaded into one process,
+each with its own modules and built libraries, and timed in turns: each
+of 5 runs times every tree once, in an order that alternates from run to
+run, so that two trees share the process's state (its core, its clocks)
+and are compared within it. Timed: the FWHT at the serve path's shapes
+(chip_smoke.FWHT_TIME_SHAPES) and a dense `x @ H` at the same shapes,
+encode_ef on 16 rows of 256, quantize_pack (8 bits) at the decode K/V
+shape (4, 1, 4, 128) and unpack_dequant on 16 rows of 32 words (4 bits,
+chunk 256). Each figure is the median over the runs of 1000 calls, then one
+synchronize. At these sizes the card finishes a call before the host
+launches the next, so the figure is the host's cost of a call. Prints one
+JSON object: each key maps to one figure per SRC, in the order given.
 """
 from __future__ import annotations
 
@@ -22,42 +29,73 @@ import torch
 
 SHAPES = (("decode_kv", (4, 1, 4, 128)), ("decode_q", (4, 4, 8, 128)),
           ("prefill_kv", (1, 80, 4, 128)))
+RUNS = 5
 
 
-def per_call_us(fn, calls=1000, runs=5) -> float:
-    fn()
+def call_us(fn, calls=1000) -> float:
     torch.cuda.synchronize()
-    out = []
-    for _ in range(runs):
-        t = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t) / calls * 1e6)
-    return statistics.median(out)
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e6
+
+
+def per_call_us(fns) -> list:
+    """Median µs per call of each of fns, timed in turns."""
+    for fn in fns:
+        fn()
+    runs = [[] for _ in fns]
+    for r in range(RUNS):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            runs[i].append(call_us(fns[i]))
+    return [statistics.median(t) for t in runs]
+
+
+def load(src: Path):
+    """The `ops` module of the repro_torch tree at src, imported beside any
+    tree loaded before (each keeps its modules)."""
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, str(src.resolve()))
+    try:
+        from repro_torch.kernels import ops
+    finally:
+        sys.path.pop(0)
+    return ops
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("wrapper_host_us: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    src = Path(sys.argv[1]) if len(sys.argv) > 1 else (
-        Path(__file__).resolve().parents[1] / "src")
-    sys.path.insert(0, str(src.resolve()))
-    from repro_torch.kernels import ops, ref
+    srcs = [Path(a) for a in sys.argv[1:]] or [
+        Path(__file__).resolve().parents[1] / "src"]
+    opss = [load(src) for src in srcs]
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    h = ref.fwht(torch.eye(128, device=dev))
-    out = {"src": str(src), "card": torch.cuda.get_device_name(0)}
+    h = opss[0].fwht(torch.eye(128, device=dev))
+    out = {"src": [str(s) for s in srcs],
+           "card": torch.cuda.get_device_name(0)}
     for tag, shape in SHAPES:
         x = torch.randn(shape, generator=g, device=dev)
-        out[f"fwht/{tag}"] = per_call_us(lambda: ops.fwht(x))
-        out[f"x@H/{tag}"] = per_call_us(lambda: x @ h)
+        out[f"fwht/{tag}"] = per_call_us(
+            [lambda o=o: o.fwht(x) for o in opss])
+        out[f"x@H/{tag}"] = per_call_us([lambda: x @ h])
     u = torch.randn(16, 256, generator=g, device=dev)
     signs = torch.ones(256, device=dev)
-    out["encode_ef/16x256"] = per_call_us(lambda: ops.encode_ef(u, signs, 4))
+    out["encode_ef/16x256"] = per_call_us(
+        [lambda o=o: o.encode_ef(u, signs, 4) for o in opss])
+    x = torch.randn(SHAPES[0][1], generator=g, device=dev)
+    scale = x.abs().amax(-1, keepdim=True)
+    out["quantize_pack/decode_kv"] = per_call_us(
+        [lambda o=o: o.quantize_pack(x, scale, 8) for o in opss])
+    words, wscale = opss[0].encode(u, signs, 4)
+    out["unpack_dequant/16x32"] = per_call_us(
+        [lambda o=o: o.unpack_dequant(words, wscale, 4, 256) for o in opss])
     print(json.dumps(out))
     return 0
 
