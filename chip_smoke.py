@@ -65,7 +65,20 @@ prints its seconds):
   8. the reduced yi-6b served on the card and on the CPU from the same
      weights and prompts: logits within a stated tolerance, greedy tokens
      equal;
-  9. print {"kernels": [...]} and, last, the device line.
+  9. the paper's algorithms (repro_torch.core, Algs. 1-3) at the §5
+     protocols' sizes, the same port code on the CPU and on the card, data
+     and Haar frames made once on the CPU, Hadamard frames drawn on each
+     device (signs and rows must agree): a. Alg. 1 (fig1b: n 116, m 200,
+     120 steps, R 1, 2, 4, 8; GD, DQGD, naive EF-QGD, DGD-DEF NDE-Hadamard
+     at N 128 and DE-Haar), rates within 1e-3; b. Alg. 2 (fig2: SVM, n 30,
+     m 100, 600 steps), final hinge loss within 1e-3 relative; c. Alg. 3
+     (fig3: 10 workers, n 30, 1500 steps, R 0.5, 1, 4; DSC-Haar,
+     NDSC-Haar, NDSC-Hadamard at N 32), x_avg within 1e-4 relative; d. the
+     codec error (fig1a: n 1000, 20 trials, R 1-6, NDE-Hadamard N 1024 and
+     NDE-Haar) within 1e-4, Hadamard payloads bitwise; e. embedding times
+     at n 1024, 4096, 8192 (fig1c) and one DGD-DEF step's host µs; f. the
+     FWHT launches (> 0 in a, c, d) and seconds of each sub-phase;
+ 10. print {"kernels": [...]} and, last, the device line.
 
 Without CUDA it exits non-zero before printing any result. Nothing here
 imports JAX or the JAX package.
@@ -569,6 +582,357 @@ def small_serve_phase(dev) -> dict:
     return out
 
 
+# -- phase 9: the paper's algorithms (Algs. 1-3, core/*), card vs CPU --------
+# The reference's §5 protocols (benchmarks/fig1a, fig1b, fig1c, fig2, fig3)
+# at the paper's sizes. Data and Haar frames are made once on the CPU from
+# the seed and copied to the card (a CUDA generator draws another stream, and
+# cuSOLVER's QR another S); Hadamard frames are drawn from keys on each
+# device. Tolerances, card against CPU: Alg. 1 rates 1e-3, Alg. 2 final hinge
+# loss 1e-3 relative, Alg. 3 x_avg 1e-4 relative, codec error 1e-4 absolute
+# with the Hadamard payloads bitwise.
+ALG1_N, ALG1_M, ALG1_STEPS, ALG1_BUDGETS = 116, 200, 120, (1, 2, 4, 8)
+ALG2_N, ALG2_M, ALG2_STEPS, ALG2_BATCH, ALG2_ALPHA = 30, 100, 600, 20, 0.05
+ALG3_WORKERS, ALG3_S, ALG3_N, ALG3_STEPS, ALG3_ALPHA = 10, 10, 30, 1500, 0.1
+ALG3_BUDGETS = (0.5, 1.0, 4.0)
+CODEC_N, CODEC_TRIALS, CODEC_BUDGETS = 1000, 20, (1.0, 2.0, 3.0, 4.0, 6.0)
+EMBED_TIME_N = (1024, 4096, 8192)
+ALG_TOL = {"alg1_rate": 1e-3, "alg2_loss_rel": 1e-3, "alg3_xavg_rel": 1e-4,
+           "codec_err_abs": 1e-4}
+
+
+def paper_problems(seed: int = 0) -> dict:
+    """The §5 problems on the CPU, from the seed (torch.Generator draws)."""
+    from repro_torch import random as rnd
+    from repro_torch.core import frames as F
+    from repro_torch.data import pipeline
+    g = torch.Generator().manual_seed(seed)
+    n, m = ALG1_N, ALG1_M
+    a = torch.randn(m, n, generator=g) ** 3 / torch.tensor(math.sqrt(m))
+    x_star = torch.randn(n, generator=g)
+    h = a.T @ a
+    eigs = torch.linalg.eigvalsh(h)
+    big_l, mu = float(eigs[-1]), max(float(eigs[0]), 1e-6)
+    alg1 = {"h": h, "atb": a.T @ (a @ x_star), "x_star": x_star,
+            "L": big_l, "mu": mu, "haar": F.haar_frame(rnd.key(0), n, n)}
+    xa, ya = pipeline.synthetic_two_class(seed, ALG2_M // 2, ALG2_N)
+    alg2 = {"a": xa, "b": ya,
+            "haar": F.haar_frame(rnd.key(2), ALG2_N, ALG2_N)}
+    w, s, n3 = ALG3_WORKERS, ALG3_S, ALG3_N
+    a3, b3, x3 = pipeline.synthetic_regression(seed, w * s, n3,
+                                               design="gauss",
+                                               model="student_t")
+    scale = torch.clamp(torch.linalg.vector_norm(x3)
+                        / torch.tensor(math.sqrt(n3)), min=1.0)
+    alg3 = {"a": a3, "b": b3 / scale,
+            "haar": F.haar_frame(rnd.key(2), n3, n3)}
+    codec = {"y": torch.randn(CODEC_N, generator=g) ** 3,
+             "haar": F.haar_frame(rnd.key(0), CODEC_N, CODEC_N)}
+    return {"alg1": alg1, "alg2": alg2, "alg3": alg3, "codec": codec}
+
+
+def _to(tree, dev):
+    """Tensors of a problem dict (frames too) copied to dev."""
+    from repro_torch.core import frames as F
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, torch.Tensor):
+            v = v.to(dev)
+        elif isinstance(v, F.DenseFrame):
+            v = F.DenseFrame(S=v.S.to(dev))
+        out[k] = v
+    return out
+
+
+def run_algorithms(P: dict, dev) -> dict:
+    """Algs. 1-3 and the codec error of the §5 protocols on dev, the port's
+    code as a user calls it. Returns the reported quantities, the FWHT
+    launches and the seconds of each sub-phase, and each algorithm's
+    (seconds, steps), each run timed between two synchronizations."""
+    from repro_torch import random as rnd
+    from repro_torch.core import baselines as B
+    from repro_torch.core import coding as C
+    from repro_torch.core import embeddings as E
+    from repro_torch.core import frames as F
+    from repro_torch.core import optim as O
+    from repro_torch.kernels import ops
+    out = {"launches": {}, "seconds": {}, "hadamard": {}, "steps": {}}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def sub_phase(name, fn):
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        out[name] = fn()
+        sync()
+        out["seconds"][name] = time.perf_counter() - t
+        out["launches"][name] = ops.launch_counts()["fwht"]
+
+    def algorithm(family, fn, *args, **kw):
+        """fn(*args, **kw), its seconds and steps added to family's."""
+        sync()
+        t = time.perf_counter()
+        trace = fn(*args, **kw)
+        sync()
+        secs, steps = out["steps"].get(family, (0.0, 0))
+        out["steps"][family] = (secs + time.perf_counter() - t,
+                                steps + trace.dist_history.shape[0])
+        return trace
+
+    def hadamard(seed, n, N):
+        frame = F.hadamard_frame(rnd.key(seed, device=dev), n, N)
+        out["hadamard"][f"{seed}/{n}/{N}"] = frame
+        return frame
+
+    def codec(frame, R, **kw):
+        emb = E.EmbeddingSpec(kind=kw.pop("embedding", "near_democratic"))
+        return C.Codec(frame, C.CodecConfig(bits_per_dim=float(R),
+                                            embedding=emb, **kw))
+
+    # a. Alg. 1 (fig1b): least squares, DGD-DEF against GD and DQGD
+    p = _to(P["alg1"], dev)
+    n, steps = ALG1_N, ALG1_STEPS
+    alpha = O.alpha_star(p["L"], p["mu"])
+    grad = lambda x: p["h"] @ x - p["atb"]                     # noqa: E731
+    x0 = torch.zeros(n, device=dev)
+    d_range = float(torch.linalg.vector_norm(p["x_star"])) * 1.5
+
+    def alg1():
+        xs = p["x_star"]
+        runs = {"gd": algorithm("gd", O.gd, grad, x0, alpha, steps,
+                                x_star=xs)}
+        had = hadamard(0, n, F.next_pow2(n))
+        for R in ALG1_BUDGETS:
+            levels = max(2, int(2 ** R))
+            runs[f"dqgd_schedule/R{R}"] = algorithm(
+                "dqgd_schedule", O.dqgd_schedule, grad, x0, levels, alpha,
+                steps, p["L"], p["mu"], d_range, n, x_star=xs)
+            runs[f"dqgd_naive/R{R}"] = algorithm(
+                "dqgd_naive", O.dqgd, grad, x0,
+                B.naive_uniform(levels).roundtrip, alpha, steps, x_star=xs)
+            runs[f"dgd_def_nde_hadamard/R{R}"] = algorithm(
+                "dgd_def_nde_hadamard", O.dgd_def, grad, x0, codec(had, R),
+                alpha, steps, x_star=xs)
+            runs[f"dgd_def_de_haar/R{R}"] = algorithm(
+                "dgd_def_de_haar", O.dgd_def, grad, x0,
+                codec(p["haar"], R, embedding="democratic"), alpha, steps,
+                x_star=xs)
+        d0 = float(torch.linalg.vector_norm(p["x_star"]))
+        rates = {}
+        for name, tr in runs.items():
+            fin = float(tr.dist_history[-1])
+            rates[name] = (min((fin / d0) ** (1.0 / steps), 1.0) if fin > 0
+                           else 0.0)
+        return {"rates": rates, "sigma": O.sigma_rate(p["L"], p["mu"])}
+
+    sub_phase("a_alg1", alg1)
+
+    # b. Alg. 2 (fig2): SVM hinge loss, DQ-PSGD at R = 0.5
+    p = _to(P["alg2"], dev)
+
+    def subgrad(k, x):
+        idx = rnd.randint(k, (ALG2_BATCH,), 0, ALG2_M).long()
+        ai, bi = p["a"][idx], p["b"][idx]
+        g = -(bi[:, None] * ai) * ((bi * (ai @ x)) < 1.0)[:, None]
+        return torch.mean(g, dim=0)
+
+    def alg2():
+        x0 = torch.zeros(ALG2_N, device=dev)
+        runs = {
+            "unquantized": {},
+            "nde_haar_R0.5": {"codec": codec(p["haar"], 0.5, dithered=True)},
+            "rand50_1b_R0.5": {"compressor_roundtrip": B.randk(
+                0.5, quant_levels=2, unbiased=True).roundtrip},
+            "top10_5b": {"compressor_roundtrip": B.topk(
+                0.1, quant_levels=32).roundtrip}}
+        x_avg = {}
+        for name, kw in runs.items():
+            tr = algorithm(f"dq_psgd_{name}", O.dq_psgd, subgrad, x0,
+                           kw.pop("codec", None), ALG2_ALPHA, ALG2_STEPS,
+                           key=rnd.key(1, device=dev), **kw)
+            x_avg[name] = tr.x_avg.cpu()
+        return {"x_avg": x_avg}
+
+    sub_phase("b_alg2", alg2)
+
+    # c. Alg. 3 (fig3): m workers, DSC and NDSC at R 0.5, 1, 4
+    p = _to(P["alg3"], dev)
+    w, s, n3 = ALG3_WORKERS, ALG3_S, ALG3_N
+    a_w, b_w = p["a"].reshape(w, s, n3), p["b"].reshape(w, s)
+
+    def subgrad_w(ids, keys, x):
+        idx = rnd.randint(keys, (w, 4), 0, s).long()
+        ai, bi = a_w[ids[:, None], idx], b_w[ids[:, None], idx]
+        return torch.mean((ai @ x - bi)[..., None] * ai, dim=1)
+
+    def alg3():
+        had = hadamard(2, n3, 32)
+        x0 = torch.zeros(n3, device=dev)
+        x_avg = {}
+        for R in ALG3_BUDGETS:
+            for name, cod in (
+                    ("dsc_haar", codec(p["haar"], R, dithered=True,
+                                       embedding="democratic")),
+                    ("ndsc_haar", codec(p["haar"], R, dithered=True)),
+                    ("ndsc_hadamard", codec(had, R, dithered=True))):
+                tr = algorithm(f"dq_psgd_multiworker_{name}",
+                               O.dq_psgd_multiworker, subgrad_w, w, x0, cod,
+                               ALG3_ALPHA, ALG3_STEPS,
+                               key=rnd.key(1, device=dev))
+                x_avg[f"{name}/R{R:g}"] = tr.x_avg.cpu()
+        return {"x_avg": x_avg}
+
+    sub_phase("c_alg3", alg3)
+
+    # d. codec error (fig1a): NDE-Hadamard (N 1024) and NDE-Haar, 20 trials
+    p = _to(P["codec"], dev)
+
+    def codec_error():
+        had = hadamard(0, CODEC_N, F.next_pow2(CODEC_N))
+        y = p["y"].expand(CODEC_TRIALS, CODEC_N)
+        keys = rnd.split(rnd.key(1, device=dev), CODEC_TRIALS)
+        err, indices = {}, {}
+        for R in CODEC_BUDGETS:
+            for name, frame in (("nde_hadamard", had),
+                                ("nde_haar", p["haar"])):
+                cod = codec(frame, R)
+                payload = cod.encode(y, keys)
+                y_hat = cod.decode(payload)
+                e = (torch.linalg.vector_norm(y_hat - y, dim=-1)
+                     / torch.linalg.vector_norm(y, dim=-1))
+                err[f"{name}/R{R:g}"] = float(e.mean())
+                if name == "nde_hadamard":
+                    indices[f"R{R:g}"] = payload.indices.cpu()
+        return {"err": err, "indices": indices}
+
+    sub_phase("d_codec_error", codec_error)
+    return out
+
+
+def compare_algorithms(cpu: dict, card: dict, P: dict) -> dict:
+    """Card against CPU at the stated tolerances; raises on a miss."""
+    worst = {}
+    for key, frame in card["hadamard"].items():
+        ref = cpu["hadamard"][key]
+        if not (torch.equal(frame.signs.cpu(), ref.signs)
+                and torch.equal(frame.rows.cpu(), ref.rows)):
+            raise AssertionError(f"Hadamard frame {key} differs card/CPU")
+    d = {k: abs(card["a_alg1"]["rates"][k] - v)
+         for k, v in cpu["a_alg1"]["rates"].items()}
+    worst["alg1_rate"] = max(d.values())
+    a, b = P["alg2"]["a"].double(), P["alg2"]["b"].double()
+
+    def hinge(x):
+        return float(torch.clamp(1.0 - b * (a @ x.double()), min=0.0).mean())
+
+    d = {k: abs(hinge(card["b_alg2"]["x_avg"][k]) - hinge(v)) / hinge(v)
+         for k, v in cpu["b_alg2"]["x_avg"].items()}
+    worst["alg2_loss_rel"] = max(d.values())
+    d = {k: float(torch.linalg.vector_norm(card["c_alg3"]["x_avg"][k] - v)
+                  / torch.linalg.vector_norm(v))
+         for k, v in cpu["c_alg3"]["x_avg"].items()}
+    worst["alg3_xavg_rel"] = max(d.values())
+    d = {k: abs(card["d_codec_error"]["err"][k] - v)
+         for k, v in cpu["d_codec_error"]["err"].items()}
+    worst["codec_err_abs"] = max(d.values())
+    for R, idx in cpu["d_codec_error"]["indices"].items():
+        if not torch.equal(card["d_codec_error"]["indices"][R], idx):
+            raise AssertionError(f"NDE-Hadamard payload differs at {R}")
+    for k, tol in ALG_TOL.items():
+        if not worst[k] <= tol:
+            raise AssertionError(f"card and CPU disagree: {k} {worst[k]} > "
+                                 f"{tol}")
+    return worst
+
+
+def time_embeddings(P: dict, dev) -> dict:
+    """Fig. 1c on the card: DE-Haar (30 LV rounds, dense), NDE-Haar and
+    NDE-Hadamard medians by CUDA events, frames drawn on the card; and one
+    DGD-DEF step on Alg. 1's problem (NDE-Hadamard, n 116, R 4) in host
+    microseconds."""
+    from repro_torch import random as rnd
+    from repro_torch.core import coding as C
+    from repro_torch.core import embeddings as E
+    from repro_torch.core import frames as F
+    from repro_torch.core import optim as O
+    from repro_torch.kernels import ops
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    ops.reset_launch_counts()
+    for n in EMBED_TIME_N:
+        haar = F.haar_frame(rnd.fold_in(rnd.key(0, device=dev), 1), n,
+                            F.next_pow2(n))
+        had = F.hadamard_frame(rnd.fold_in(rnd.key(0, device=dev), 2), n,
+                               F.next_pow2(n))
+        y = torch.randn(n, generator=g, device=dev) ** 3
+        out[f"n{n}"] = {
+            "de_haar_ms": timed(lambda: E.democratic(haar, y), 3),
+            "nde_haar_ms": timed(lambda: E.near_democratic(haar, y), 10),
+            "nde_hadamard_ms": timed(lambda: E.near_democratic(had, y), 10)}
+        del haar
+    out["fwht_launches"] = ops.launch_counts()["fwht"]
+    p, steps = _to(P["alg1"], dev), 200
+    grad = lambda x: p["h"] @ x - p["atb"]                     # noqa: E731
+    alpha = O.alpha_star(p["L"], p["mu"])
+    cod = C.Codec(F.hadamard_frame(rnd.key(0, device=dev), ALG1_N),
+                  C.CodecConfig(bits_per_dim=4.0))
+    x0 = torch.zeros(ALG1_N, device=dev)
+    O.dgd_def(grad, x0, cod, alpha, 5)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    O.dgd_def(grad, x0, cod, alpha, steps)
+    torch.cuda.synchronize()
+    out["dgd_def_step_host_us"] = (time.perf_counter() - t) / steps * 1e6
+    return out
+
+
+def algorithms_phase(dev) -> dict:
+    """Phase 9: run_algorithms on the CPU and on dev, compared; timings."""
+    P = paper_problems()
+    t = time.perf_counter()
+    cpu = run_algorithms(P, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t
+    card = run_algorithms(P, dev)
+    worst = compare_algorithms(cpu, card, P)
+    rates = card["a_alg1"]["rates"]
+    log(f"[alg1] sigma {card['a_alg1']['sigma']} rates (card) "
+        + json.dumps(rates))
+    log("[alg2] final hinge loss at x_avg (card) " + json.dumps(
+        {k: float(torch.clamp(1.0 - P["alg2"]["b"] * (P["alg2"]["a"] @ v),
+                              min=0.0).mean())
+         for k, v in card["b_alg2"]["x_avg"].items()}))
+    log("[alg3] |x_avg| (card) " + json.dumps(
+        {k: float(torch.linalg.vector_norm(v))
+         for k, v in card["c_alg3"]["x_avg"].items()}))
+    log("[codec error] (card) " + json.dumps(card["d_codec_error"]["err"]))
+    log(f"[alg] card vs CPU worst {json.dumps(worst)} (tolerances "
+        f"{json.dumps(ALG_TOL)})")
+    timing = time_embeddings(P, dev)
+    log("[embed time] " + json.dumps(timing))
+    steps_per_s = {dev_name: {k: n / secs for k, (secs, n)
+                              in r["steps"].items()}
+                   for dev_name, r in (("card", card), ("cpu", cpu))}
+    log("[alg] steps/s " + json.dumps(steps_per_s))
+    record = {"worst": worst, "tolerances": ALG_TOL,
+              "steps_per_s": steps_per_s,
+              "fwht_launches": card["launches"],
+              "cpu_fwht_launches": cpu["launches"],
+              "seconds": {"card": card["seconds"], "cpu": cpu["seconds"],
+                          "cpu_total": cpu_s},
+              "alg1_rates": rates, "sigma": card["a_alg1"]["sigma"],
+              "codec_error": card["d_codec_error"]["err"],
+              "embed_time": timing}
+    log(f"[alg] FWHT launches per sub-phase (card) "
+        f"{json.dumps(card['launches'])}; seconds card "
+        f"{json.dumps(card['seconds'])} cpu {json.dumps(cpu['seconds'])}")
+    for name, n in card["launches"].items():
+        if name != "b_alg2" and n == 0:
+            raise AssertionError(f"{name} launched no FWHT on the card")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -859,7 +1223,11 @@ def main() -> int:
     small_serve = small_serve_phase(dev)
     clock.done("8 small serve, card vs CPU")
 
-    # -- 9. result lines --------------------------------------------------------
+    # -- 9. the paper's algorithms (Algs. 1-3), card vs CPU -------------------
+    algorithms = algorithms_phase(dev)
+    clock.done("9 paper's algorithms, card vs CPU")
+
+    # -- 10. result lines -------------------------------------------------------
     names = {
         "encode": ("src/repro_torch/csrc/quantencode.cu",
                    "src/repro/kernels/quantencode.py:200", dk_counts),
@@ -890,7 +1258,8 @@ def main() -> int:
                            "peak_mem_GB": peak_gb},
               "train_x1_dithered": {"losses": losses1, "step_s": secs1},
               "serve_kernels": serve_times, "serve_x32": serve_numbers,
-              "small_serve": small_serve, "phase_s": clock.seconds}
+              "small_serve": small_serve, "algorithms": algorithms,
+              "phase_s": clock.seconds}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,15 @@
-"""Synthetic, deterministic LM token stream (port of `repro.data.pipeline`).
+"""Synthetic data (port of `repro.data.pipeline`): the LM token stream and
+the convex problems of the paper's §5.
 
-Order-1 Markov sequences over a fixed low-rank random transition table:
-learnable structure with no I/O. A batch is a pure function of
-(seed, step), drawn from seeded `torch.Generator`s on the caller's device.
+The token stream is order-1 Markov sequences over a fixed low-rank random
+transition table: learnable structure with no I/O. A batch is a pure
+function of (seed, step). Everything here draws from seeded
+`torch.Generator`s on the caller's device.
 
 The draws are NOT bitwise equal to the JAX package's (which uses
-`jax.random`); the distribution is the same. Tests that compare the two
-packages feed both the same numpy tokens.
+`jax.random`), and a generator on the card draws another stream than one on
+the CPU; the distributions are the same. Tests that compare the two
+packages feed both the same numpy arrays.
 """
 from __future__ import annotations
 
@@ -65,3 +68,39 @@ def batch_for_shape(cfg, batch_size: int, seq_len: int, step: int = 0,
             f"frontend={cfg.frontend!r} batches are not ported yet")
     return TokenStream(cfg.vocab_size, seq_len, batch_size, seed,
                        device=str(device)).batch(step)
+
+
+# ---------------------------------------------------------------------------
+# Convex-experiment data (paper §5 protocols)
+# ---------------------------------------------------------------------------
+def synthetic_regression(seed: int, n_samples: int, dim: int,
+                         design: str = "gauss3", model: str = "student_t",
+                         device="cpu"):
+    """b = A x* with heavy-tailed A and/or x* (paper Fig. 3a / Figs. 5–6):
+    A Gaussian (cubed for design 'gauss3'); x* Student-t(1) (a Cauchy
+    draw), Gaussian cubed, or Gaussian. Returns (A, b, x*)."""
+    gen = _generator(seed, device)
+    a = torch.randn(n_samples, dim, generator=gen, device=device)
+    if design == "gauss3":
+        a = a ** 3
+    if model == "student_t":
+        x_star = torch.empty(dim, device=device).cauchy_(generator=gen)
+    elif model == "gauss3":
+        x_star = torch.randn(dim, generator=gen, device=device) ** 3
+    else:
+        x_star = torch.randn(dim, generator=gen, device=device)
+    return a, a @ x_star, x_star
+
+
+def synthetic_two_class(seed: int, n_per_class: int, dim: int,
+                        separation: float = 2.0, device="cpu"):
+    """Two Gaussian clouds at ±separation/√dim·1, labels ±1 (paper Fig.
+    2a–b SVM protocol). Returns (x (2·n_per_class, dim), y)."""
+    gen = _generator(seed, device)
+    mu = torch.full((dim,), separation, device=device) / torch.sqrt(
+        torch.tensor(float(dim), device=device))
+    xa = torch.randn(n_per_class, dim, generator=gen, device=device) + mu
+    xb = torch.randn(n_per_class, dim, generator=gen, device=device) - mu
+    y = torch.cat([torch.ones(n_per_class, device=device),
+                   -torch.ones(n_per_class, device=device)])
+    return torch.cat([xa, xb]), y

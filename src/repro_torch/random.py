@@ -1,16 +1,30 @@
-"""Threefry2x32 keys and the samplers the NDSC codec draws from.
+"""Threefry2x32 keys and the samplers the codec and the algorithms draw from.
 
 Bitwise equal to `jax.random` (jax 0.9.0, `jax_threefry_partitionable=True`,
-x64 off) for the calls the codec makes: `key`, `fold_in`, `split`,
-`uniform(minval, maxval)` in float32 and `rademacher`. Shared randomness is
-part of the wire: frame signs, dithers and keep masks must agree bit for bit
-with the reference, so every worker (and every framework) decodes alike.
+x64 off) for the calls the codec and the paper's algorithms make: `key`,
+`fold_in`, `split`, `uniform(minval, maxval)` in float32, `rademacher`,
+`permutation` and int32 `randint`. Shared randomness is part of the wire:
+frame signs, rows, dithers and keep masks must agree bit for bit with the
+reference, so every worker (and every framework) decodes alike. `normal` is
+not bitwise: it goes through `torch.erfinv`, not XLA's `erf_inv`.
 
-A key is an int64 tensor of shape (2,) holding two uint32 words. All
+A key is an int64 tensor of shape (2,) holding two uint32 words. A stack of
+keys, shape (..., 2), draws one row per key, each row bitwise equal to the
+draw under that key alone (what `jax.vmap` over the keys gives). All
 arithmetic runs in int64 tensor ops masked to 32 bits (torch has no full
 uint32 arithmetic), so the same code runs on the CPU and on the card.
+
+A hash is ~170 tensor ops whatever its size, so a loop that draws a few
+numbers per step under key t of `split(key, steps)` would spend its time
+launching them. `KeyStack` holds a loop's step keys; its `StepKey`s pass
+through `split`, `split2` and the samplers like keys, and each distinct draw
+is made for a block of steps at once (one hash over steps × shape
+counters, at most `_DRAW_BLOCK` values) and read back by row: the same
+bits, a view per step.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -19,6 +33,48 @@ _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 # largest number of counters hashed at once: bounds the int64 temporaries
 _BLOCK = 1 << 24
+# largest number of values a KeyStack draws ahead for one kind of draw
+_DRAW_BLOCK = 1 << 22
+
+
+class KeyStack:
+    """The keys of every step of a loop, (steps, ..., 2). `at(t)` is step
+    t's key; a draw under it is made for a block of steps at once."""
+
+    def __init__(self, keys: torch.Tensor):
+        self.keys = keys
+        self._memo = {}
+
+    def at(self, t: int) -> "StepKey":
+        return StepKey(self, t)
+
+    def draw(self, fn, t: int, shape, *args):
+        """Step t's row of fn(step keys, (steps,) + shape, *args), drawn for
+        a block of steps at once; the latest block of each draw is kept."""
+        shape = tuple(shape)
+        block = max(1, _DRAW_BLOCK // max(1, math.prod(shape)))
+        b, i = divmod(t, block)
+        memo_key = (fn.__name__, shape, args)
+        hit = self._memo.get(memo_key)
+        if hit is None or hit[0] != b:
+            keys = self.keys[b * block:(b + 1) * block]
+            hit = (b, fn(keys, (keys.shape[0],) + shape, *args))
+            self._memo[memo_key] = hit
+        return hit[1][i]
+
+
+class StepKey:
+    """Key t of a KeyStack (see the module docstring)."""
+
+    __slots__ = ("stack", "t")
+
+    def __init__(self, stack: KeyStack, t: int):
+        self.stack, self.t = stack, t
+
+    @property
+    def value(self) -> torch.Tensor:
+        """The key itself, (..., 2)."""
+        return self.stack.keys[self.t]
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -48,8 +104,10 @@ def key(seed: int, device=None) -> torch.Tensor:
 
 
 def _words(k: torch.Tensor):
+    """The key's two words, each shaped (..., 1) so that they broadcast
+    over a draw's counters."""
     k = k.to(torch.int64)
-    return k[0], k[1]
+    return k[..., 0, None], k[..., 1, None]
 
 
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
@@ -57,31 +115,63 @@ def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     k1, k2 = _words(k)
     x = torch.tensor([0, int(data) & _M32], dtype=torch.int64, device=k.device)
     y1, y2 = threefry2x32(k1, k2, x[:1], x[1:])
-    return torch.cat([y1, y2])
+    return torch.cat([y1, y2], dim=-1)
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """`jax.random.split` (partitionable): key i = hash of counter (0, i)."""
+    """`jax.random.split` (partitionable): key i = hash of counter (0, i).
+    k (..., 2) → (..., num, 2)."""
+    if isinstance(k, StepKey):
+        return _derived(k, split, num)
     k1, k2 = _words(k)
     lo = torch.arange(num, dtype=torch.int64, device=k.device)
     y1, y2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return torch.stack([y1, y2], dim=1)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def split2(k: torch.Tensor):
+    """`k1, k2 = jax.random.split(k)`, for a key or a stack of keys."""
+    if isinstance(k, StepKey):
+        return _derived(k, _half, 0), _derived(k, _half, 1)
+    ks = split(k)
+    return ks[..., 0, :], ks[..., 1, :]
+
+
+def _half(k: torch.Tensor, i: int) -> torch.Tensor:
+    """Half i of split(k)."""
+    return split2(k)[i]
+
+
+def _derived(k: StepKey, fn, arg) -> StepKey:
+    """Step t's key of the KeyStack fn(all step keys, arg), memoized."""
+    memo_key = ("keystack", fn.__name__, arg)
+    memo = k.stack._memo
+    if memo_key not in memo:
+        memo[memo_key] = KeyStack(fn(k.stack.keys, arg))
+    return memo[memo_key].at(k.t)
 
 
 def random_bits32(k: torch.Tensor, shape) -> torch.Tensor:
     """32 random bits per element (int64 in [0, 2^32)): bits1 ^ bits2 of the
-    hash of the flat row-major index, split into (hi, lo) words."""
+    hash of the flat row-major index, split into (hi, lo) words.
+
+    Under a stack of keys k (*B, 2), `shape` starts with B and key i hashes
+    its own row of shape[len(B):]."""
+    if isinstance(k, StepKey):
+        return k.stack.draw(random_bits32, k.t, shape)
     shape = tuple(shape)
-    n = 1
-    for d in shape:
-        n *= d
+    lead = tuple(k.shape[:-1])
+    if shape[:len(lead)] != lead:
+        raise ValueError(f"shape {shape} must start with the key stack's "
+                         f"shape {lead}")
+    n = math.prod(shape[len(lead):])
     k1, k2 = _words(k)
-    out = torch.empty(n, dtype=torch.int64, device=k.device)
+    out = torch.empty(lead + (n,), dtype=torch.int64, device=k.device)
     for start in range(0, n, _BLOCK):
         idx = torch.arange(start, min(n, start + _BLOCK), dtype=torch.int64,
                            device=k.device)
         y1, y2 = threefry2x32(k1, k2, idx >> 32, idx & _M32)
-        out[start:start + idx.numel()] = y1 ^ y2
+        out[..., start:start + idx.numel()] = y1 ^ y2
     return out.reshape(shape)
 
 
@@ -93,6 +183,8 @@ def uniform(k: torch.Tensor, shape, minval: float = 0.0,
     max(minval, f·(maxval − minval) + minval) rounded step by step. (For
     the codec's ranges, widths that are powers of two, the product is exact,
     so a fused multiply-add in the reference would give the same bits.)"""
+    if isinstance(k, StepKey):
+        return k.stack.draw(uniform, k.t, shape, minval, maxval)
     bits = random_bits32(k, shape)
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
@@ -101,8 +193,60 @@ def uniform(k: torch.Tensor, shape, minval: float = 0.0,
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+def normal(k: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.normal` in float32: √2·erfinv(u) with u uniform on
+    [nextafter(−1, 0), 1). u is bitwise the reference's; `torch.erfinv`
+    and XLA's `erf_inv` differ in the last bits, so the draw is not."""
+    if isinstance(k, StepKey):
+        return k.stack.draw(normal, k.t, shape)
+    u = uniform(k, shape, -(1.0 - 2.0 ** -24), 1.0)   # f32 nextafter(-1, 0)
+    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=k.device)
+    return sqrt2 * torch.erfinv(u)
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """(a·b) mod 2^32 for a, b < 2^32, with every product under 2^48."""
+    return ((((a * (b >> 16)) & 0xFFFF) << 16) + a * (b & 0xFFFF)) & _M32
+
+
+def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """`jax.random.randint` in int32 on [minval, maxval): 32 high and 32 low
+    bits (under the two halves of a split) folded modulo the span in
+    uint32 arithmetic, products and sums wrapping at 32 bits, as jax does.
+    maxval ≤ minval gives minval."""
+    if isinstance(k, StepKey):
+        return k.stack.draw(randint, k.t, shape, minval, maxval)
+    if not (-2 ** 31 <= minval < 2 ** 31 and -2 ** 31 <= maxval < 2 ** 31):
+        raise ValueError(f"bounds must fit int32, got {minval}, {maxval}")
+    k1, k2 = split2(k)
+    hi = random_bits32(k1, shape)
+    lo = random_bits32(k2, shape)
+    span = 1 if maxval <= minval else maxval - minval
+    mult = (((2 ** 16 % span) ** 2) & _M32) % span
+    offset = ((_mul32(hi % span, mult) + lo % span) & _M32) % span
+    out = (minval + offset) & _M32
+    return (out - ((out >> 31) << 32)).to(torch.int32)
+
+
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)`: arange(n) in int32, stably sorted
+    by fresh 32-bit draws in each of ceil(3·ln n / ln(2^32 − 1)) rounds
+    (1 up to n = 1625, 2 from 1626); a round draws under the second half
+    of a split of the key and carries the first half on."""
+    if isinstance(k, StepKey):
+        k = k.value
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_M32)))
+    x = torch.arange(n, dtype=torch.int32, device=k.device)
+    for _ in range(rounds):
+        k, sub = split(k)
+        x = x[torch.sort(random_bits32(sub, (n,)), stable=True).indices]
+    return x
+
+
 def bernoulli(k: torch.Tensor, shape, p: float = 0.5) -> torch.Tensor:
     """`jax.random.bernoulli` (mode 'low'): uniform < p."""
+    if isinstance(k, StepKey):
+        return k.stack.draw(bernoulli, k.t, shape, p)
     return uniform(k, shape) < p
 
 

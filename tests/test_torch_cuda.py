@@ -128,3 +128,41 @@ def test_cuda_quant_decode_attention_tile_path_matches_plain(cuda, bits, dh,
     dh > 256), split and combined like the warp-resident kernel's."""
     C.check_quant_decode_attention(bits, dh, c, g, cuda)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,N", [(30, 32), (116, 128), (1000, 1024),
+                                 (8192, 8192), (5000, 8192)])
+def test_cuda_hadamard_frame_matches_cpu(cuda, n, N):
+    """A Hadamard frame drawn from a key on the card has the CPU's signs
+    and rows, and its S x and Sᵀ y (the FWHT kernel plus a gather or a
+    scatter) are bitwise the CPU's plain versions."""
+    from repro_torch import random as rnd
+    from repro_torch.core import frames as F
+    host = F.hadamard_frame(rnd.key(n), n, N)
+    card = F.hadamard_frame(rnd.key(n, device=cuda), n, N)
+    assert torch.equal(card.signs.cpu(), host.signs)
+    assert torch.equal(card.rows.cpu(), host.rows)
+    g = torch.Generator().manual_seed(N)
+    x, y = torch.randn(3, N, generator=g), torch.randn(3, n, generator=g)
+    ops.reset_launch_counts()
+    assert torch.equal(card.apply(x.to(cuda)).cpu(), host.apply(x))
+    assert torch.equal(card.apply_t(y.to(cuda)).cpu(), host.apply_t(y))
+    assert ops.launch_counts()["fwht"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_draws_match_cpu(cuda):
+    """permutation (one and two sorting rounds), randint and uniform under
+    a stack of keys: the card's draws are the CPU's, bit for bit."""
+    from repro_torch import random as rnd
+    for n in (116, 1625, 1626, 8192):
+        assert torch.equal(rnd.permutation(rnd.key(3, device=cuda), n).cpu(),
+                           rnd.permutation(rnd.key(3), n))
+    for lo, hi in ((0, 10), (0, 2 ** 31 - 1), (-2 ** 31, 2 ** 31 - 1)):
+        assert torch.equal(
+            rnd.randint(rnd.key(5, device=cuda), (64, 7), lo, hi).cpu(),
+            rnd.randint(rnd.key(5), (64, 7), lo, hi))
+    keys = rnd.split(rnd.key(6), 10)
+    assert torch.equal(rnd.uniform(keys.to(cuda), (10, 33)).cpu(),
+                       rnd.uniform(keys, (10, 33)))
