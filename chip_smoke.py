@@ -78,7 +78,28 @@ prints its seconds):
      NDE-Haar) within 1e-4, Hadamard payloads bitwise; e. embedding times
      at n 1024, 4096, 8192 (fig1c) and one DGD-DEF step's host µs; f. the
      FWHT launches (> 0 in a, c, d) and seconds of each sub-phase;
- 10. print {"kernels": [...]} and, last, the device line.
+ 10. codecs and federation (repro_torch.codecs, repro_torch.fed): a. each
+     wire codec (ndsc R 2 and R 0.5 with exact keep, ndsc's encode_ef,
+     ratq R 2, sparsify_then_embed top-k and rand-k at R 1, 4 bits) on the
+     parameter tree of yi-6b at full width cut to 4 layers (12 leaves,
+     1,216,385,024 seeded values): encode, decode and encode_ef ms (CUDA
+     events, medians of 3), each kernel's launches per call and the peak
+     memory; the ledger equal to the audit to the byte, finite decodes, and
+     on one 4096-wide leaf the card's payload bitwise the CPU's; b.
+     benchmarks/fed_heterogeneous at its own size (m 8, dim 128, 256
+     examples per client, 50 rounds, norm-proportional budgets around
+     R̄ = 1, chunk 64), fedavg and fedmem at 50% participation with 20%
+     stragglers, card against the port's CPU run: the ledger and the
+     participants identical, params within 1e-4 relative (the loss summed
+     in f64; the f32 loss's gap reported), and cohort against scalar
+     bitwise on the card; c. fed_cohort_scaling's m 512 (dim 128, 32 per
+     client, ndsc R 2): a round cohort against scalar bitwise, one
+     encode_ef and one unpack_dequant launch per leaf per cohort round,
+     rounds per second on the card and the CPU; d. fed_aggregate_scaling's
+     tree (dim 1024) at m 512: sequential aggregate_stacked bitwise the
+     list aggregate (fedavg, fedopt), with pairwise's gap and each
+     layout's ms;
+ 11. print {"kernels": [...]} and, last, the device line.
 
 Without CUDA it exits non-zero before printing any result. Nothing here
 imports JAX or the JAX package.
@@ -525,7 +546,7 @@ def small_serve_phase(dev) -> dict:
     small = dataclasses.replace(configs.get_reduced("yi-6b"),
                                 kv_quant_bits=SERVE_BITS)
     devices = {"cpu": torch.device("cpu"), "card": dev}
-    params = {"cpu": model_lib.init_params(0, small)}
+    params = {"cpu": model_lib.init_params(0, small, "cpu")}
     params["card"] = tree_lib.map(lambda x: x.to(dev), params["cpu"])
     gen = torch.Generator()
     gen.manual_seed(6)
@@ -614,13 +635,15 @@ def paper_problems(seed: int = 0) -> dict:
     big_l, mu = float(eigs[-1]), max(float(eigs[0]), 1e-6)
     alg1 = {"h": h, "atb": a.T @ (a @ x_star), "x_star": x_star,
             "L": big_l, "mu": mu, "haar": F.haar_frame(rnd.key(0), n, n)}
-    xa, ya = pipeline.synthetic_two_class(seed, ALG2_M // 2, ALG2_N)
+    xa, ya = pipeline.synthetic_two_class(seed, ALG2_M // 2, ALG2_N,
+                                        device="cpu")
     alg2 = {"a": xa, "b": ya,
             "haar": F.haar_frame(rnd.key(2), ALG2_N, ALG2_N)}
     w, s, n3 = ALG3_WORKERS, ALG3_S, ALG3_N
     a3, b3, x3 = pipeline.synthetic_regression(seed, w * s, n3,
                                                design="gauss",
-                                               model="student_t")
+                                               model="student_t",
+                                               device="cpu")
     scale = torch.clamp(torch.linalg.vector_norm(x3)
                         / torch.tensor(math.sqrt(n3)), min=1.0)
     alg3 = {"a": a3, "b": b3 / scale,
@@ -933,6 +956,311 @@ def algorithms_phase(dev) -> dict:
     return record
 
 
+# -- phase 10: codecs and federation (codecs/*, fed/*), card vs CPU --------
+# a. every wire codec at the trainer's size (yi-6b at full width cut to 4
+#    layers, the tree phase 4 trains, filled with seeded values), the
+#    registry's defaults (chunk 128); b. benchmarks/fed_heterogeneous at its
+#    own size, card against the port's CPU run; c. fed_cohort_scaling's
+#    m 512; d. fed_aggregate_scaling's tree at m 512.
+CODEC_CASES = (("ndsc R2", "ndsc", 2.0, {}),
+               ("ndsc R0.5", "ndsc", 0.5, {}),
+               ("ratq R2", "ratq", 2.0, {}),
+               ("ste topk R1", "sparsify_then_embed", 1.0,
+                {"mode": "topk", "bits": 4}),
+               ("ste randk R1", "sparsify_then_embed", 1.0,
+                {"mode": "randk", "bits": 4}))
+FED_M, FED_DIM, FED_PER, FED_ROUNDS, FED_CHUNK = 8, 128, 256, 50, 64
+# max |Δx| / max |x|, card against CPU: tests/test_torch_fed.py's PARAM_TOL
+FED_TOL = 1e-4
+COHORT_M, COHORT_PER, COHORT_ROUNDS = 512, 32, 3
+AGG_M, AGG_DIM = 512, 1024
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _same_tree(a, b) -> bool:
+    from repro_torch import tree as tree_lib
+    la, lb = tree_lib.leaves(a), tree_lib.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+
+
+def codec_phase(dev) -> dict:
+    """10a: each wire codec on the 4-layer yi-6b tree: encode, decode and
+    (ndsc) encode_ef, each kernel's launches per call, median ms of 3
+    CUDA-event timings, peak memory; the ledger equal to the audit to the
+    byte, finite decodes, and on one 4096-wide leaf the card's payload
+    bitwise the CPU's."""
+    from repro_torch import codecs, configs
+    from repro_torch import random as rnd
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    cfg4 = dataclasses.replace(configs.get("yi-6b"), num_layers=4)
+    shapes, spec = tree_lib.flatten(model_lib.param_shapes(cfg4),
+                                    is_leaf=lambda x: isinstance(x, tuple))
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    tree = tree_lib.unflatten(spec, [
+        torch.randn(s, generator=g, device=dev) for s in shapes])
+    coords = sum(math.prod(s) for s in shapes)
+    small = tree["blocks"]["attn_norm"]                      # (4, 4096)
+    key, host_key = rnd.key(0, device=dev), rnd.key(0)
+    log(f"[codecs] yi-6b x4 tree: {len(shapes)} leaves, {coords} "
+        "coordinates")
+
+    def count(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        _sync(dev)
+        return out, {k: v for k, v in ops.launch_counts().items() if v}
+
+    def median_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+    out = {}
+    for label, name, budget, kw in CODEC_CASES:
+        c = codecs.make(name, budget, **kw)
+        meta = c.meta(tree)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wire, enc_counts = count(lambda: c.encode(key, tree, 1))
+        dec, dec_counts = count(lambda: c.decode(wire, meta))
+        if not all(bool(torch.isfinite(x).all())
+                   for x in tree_lib.leaves(dec)):
+            raise AssertionError(f"{label}: non-finite decode")
+        del dec
+        ledger, audit = c.wire_bytes(wire, meta), c.wire_bits(tree) / 8
+        if ledger != audit:
+            raise AssertionError(f"{label}: ledger {ledger} != audit {audit}")
+        r = {"name": c.name, "wire_bytes": ledger,
+             "encode_launches": enc_counts, "decode_launches": dec_counts,
+             "encode_ms": median_ms(lambda: c.encode(key, tree, 1)),
+             "decode_ms": median_ms(lambda: c.decode(wire, meta))}
+        if c.encode_ef is not None:
+            (wire2, resid), ef_counts = count(
+                lambda: c.encode_ef(key, tree, meta, 1))
+            if not _same_tree(wire, wire2):
+                raise AssertionError(f"{label}: encode_ef's wire differs")
+            if not all(bool(torch.isfinite(x).all())
+                       for x in tree_lib.leaves(resid)):
+                raise AssertionError(f"{label}: non-finite residual")
+            del wire2, resid
+            r["encode_ef_launches"] = ef_counts
+            r["encode_ef_ms"] = median_ms(
+                lambda: c.encode_ef(key, tree, meta, 1))
+        r["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        del wire
+        # the card's payload against the CPU's on one 4096-wide leaf
+        if not _same_tree(c.encode(host_key, {"x": small.cpu()}, 1),
+                          c.encode(key, {"x": small}, 1)):
+            raise AssertionError(f"{label}: card payload != CPU payload")
+        log(f"[codecs] {label}: " + json.dumps(r))
+        out[label] = r
+    del tree
+    torch.cuda.empty_cache()
+    return {"coordinates": coords, "leaves": len(shapes), "codecs": out}
+
+
+def fed_problem(m, dim, per_client, scale_span, seed=0):
+    """fed_heterogeneous.make_problem's least squares drawn in numpy, as
+    tests/test_torch_fed.py draws it: (CPU shards, lr = α*, the probe
+    norms ‖∇f_i(0)‖)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    scales = np.logspace(-scale_span, scale_span, m)
+    a = (rng.standard_normal((m, per_client, dim))
+         / np.sqrt(per_client)).astype(np.float32)
+    x_true = rng.standard_normal(dim).astype(np.float32)
+    shards = [{"a": (scales[i] * a[i]).astype(np.float32),
+               "b": (scales[i] * (a[i] @ x_true)).astype(np.float32)}
+              for i in range(m)]
+    all_a = np.concatenate([s["a"] for s in shards]).astype(np.float64)
+    eigs = np.linalg.eigvalsh(all_a.T @ all_a / all_a.shape[0])
+    norms = [float(np.linalg.norm(s["a"].astype(np.float64).T
+                                  @ s["b"].astype(np.float64)) / per_client)
+             for s in shards]
+    return ([{k: torch.from_numpy(v) for k, v in s.items()} for s in shards],
+            float(2.0 / (eigs[-1] + eigs[0])), norms)
+
+
+def ls_loss(p, batch):
+    r = batch["a"] @ p["x"] - batch["b"]
+    return 0.5 * torch.mean(r * r)
+
+
+def ls_loss64(p, batch):
+    """ls_loss accumulated in f64 (the gradient rounds to f32 at the end),
+    so that the card's and the CPU's gradients agree bit for bit."""
+    r = batch["a"].double() @ p["x"].double() - batch["b"].double()
+    return 0.5 * torch.mean(r * r)
+
+
+def run_fed(dev, shards, lr, codecs_, loss_fn, server_kw, fed_kw, rounds,
+            use_cohorts=True):
+    from repro_torch import fed
+    dim = shards[0]["a"].shape[1]
+    f = fed.Federation(loss_fn, {"x": torch.zeros(dim)}, shards, codecs_,
+                       fed.ClientConfig(lr=lr), fed.ServerConfig(**server_kw),
+                       seed=0, use_cohorts=use_cohorts, device=dev)
+    _sync(dev)
+    t = time.perf_counter()
+    hist = f.run(fed.FedConfig(num_rounds=rounds, seed=0, **fed_kw))
+    _sync(dev)
+    return f, hist, time.perf_counter() - t
+
+
+def fed_phase(dev) -> dict:
+    """10b-d (see the constants above)."""
+    from repro_torch import codecs, fed
+    from repro_torch import tree as tree_lib
+    from repro_torch.fed import budget
+    from repro_torch.kernels import ops
+    from repro_torch.optimizer import optim
+    cpu = torch.device("cpu")
+    out = {"b": {}, "c": {}, "d": {}}
+
+    # b. fed_heterogeneous, card against the port's CPU run
+    shards, lr, norms = fed_problem(FED_M, FED_DIM, FED_PER, 1.0)
+    rates = budget.allocate("norm_proportional", 1.0 * FED_M, FED_M,
+                            norms=norms, min_rate=0.25)
+    cs = [codecs.make("ndsc", float(r), chunk=FED_CHUNK) for r in rates]
+    for label, server_kw, fed_kw in (
+            ("fedavg", {}, {}),
+            ("fedmem partial", {"aggregator": "fedmem", "server_lr": 0.25},
+             {"participation": 0.5, "dropout": 0.2})):
+        for loss_name, loss_fn in (("f64 loss", ls_loss64),
+                                   ("f32 loss", ls_loss)):
+            (fh, hh, hs), (fc, hc, card_s) = [
+                run_fed(d, shards, lr, cs, loss_fn, server_kw, fed_kw,
+                        FED_ROUNDS) for d in (cpu, dev)]
+            for k in ("participants", "stragglers", "wire_bytes",
+                      "analytic_bytes"):
+                if hh[k] != hc[k]:
+                    raise AssertionError(f"10b {label}: {k} differs")
+            if hc["wire_bytes"] != hc["analytic_bytes"]:
+                raise AssertionError(f"10b {label}: ledger != audit")
+            want = fh.server.params["x"]
+            gap = float((fc.server.params["x"].cpu() - want).abs().max()
+                        / want.abs().max())
+            r = {"gap_rel": gap, "cpu_s": hs, "card_s": card_s,
+                 "wire_bytes_per_round": hc["wire_bytes"][0],
+                 "stragglers": sum(len(x) for x in hc["stragglers"])}
+            # the f32 loss sums in cuBLAS's order on the card and MKL's on
+            # the CPU: its gap is reported, the f64 loss's is held
+            if loss_name == "f64 loss" and gap > FED_TOL:
+                raise AssertionError(f"10b {label}: params gap {gap}")
+            out["b"][f"{label}, {loss_name}"] = r
+            log(f"[fed b] {label}, {loss_name}: " + json.dumps(r))
+    shared = codecs.make("ndsc", 1.0, chunk=FED_CHUNK)
+    runs = [run_fed(dev, shards, lr, shared, ls_loss, {"aggregator": "fedmem",
+                                                      "server_lr": 0.25},
+                    {"participation": 0.5, "dropout": 0.2}, FED_ROUNDS,
+                    use_cohorts=u) for u in (True, False)]
+    if not (runs[0][1] == runs[1][1]
+            and _same_tree(runs[0][0].server, runs[1][0].server)
+            and all(_same_tree(a, b) for a, b in zip(runs[0][0].states,
+                                                     runs[1][0].states))):
+        raise AssertionError("10b: cohort != scalar on the card")
+    out["b"]["cohort vs scalar (card)"] = {"cohort_s": runs[0][2],
+                                           "scalar_s": runs[1][2]}
+    log("[fed b] cohort == scalar on the card, bitwise; s "
+        + json.dumps(out["b"]["cohort vs scalar (card)"]))
+
+    # c. the cohort engine at m 512 (fed_cohort_scaling)
+    shards, lr, _ = fed_problem(COHORT_M, FED_DIM, COHORT_PER, 0.0)
+    codec = codecs.make("ndsc", 2.0, chunk=FED_CHUNK)
+    cfg = fed.FedConfig(num_rounds=1, seed=0)
+
+    def make(d, cohorts):
+        return fed.Federation(ls_loss, {"x": torch.zeros(FED_DIM)}, shards,
+                              codec, fed.ClientConfig(lr=lr), seed=0,
+                              use_cohorts=cohorts, device=d)
+
+    fc, fs = make(dev, True), make(dev, False)
+    t = time.perf_counter()
+    rc = fc.run_round(cfg, 0)
+    _sync(dev)
+    first_s = time.perf_counter() - t
+    t = time.perf_counter()
+    rs = fs.run_round(cfg, 0)
+    _sync(dev)
+    scalar_s = time.perf_counter() - t
+    if not (rc == rs and _same_tree(fc.server, fs.server)
+            and all(_same_tree(a, b) for a, b in zip(fc.states, fs.states))):
+        raise AssertionError("10c: cohort round != scalar round")
+    ops.reset_launch_counts()
+    fc.run_round(cfg, 1)
+    _sync(dev)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    if counts.get("encode_ef") != 1 or counts.get("unpack_dequant") != 1:
+        raise AssertionError(f"10c: a cohort round launched {counts}")
+    rps = {}
+    for label, d, f in (("card", dev, fc), ("cpu", cpu, make(cpu, True))):
+        f.run_round(cfg, 1)
+        _sync(d)
+        t = time.perf_counter()
+        for r in range(2, 2 + COHORT_ROUNDS):
+            f.run_round(cfg, r)
+        _sync(d)
+        rps[label] = COHORT_ROUNDS / (time.perf_counter() - t)
+    out["c"] = {"rounds_per_s": rps, "launches_per_round": counts,
+                "first_round_s": first_s, "scalar_round_s": scalar_s,
+                "wire_bytes_per_round": rc["wire_bytes"]}
+    log("[fed c] m 512: " + json.dumps(out["c"]))
+
+    # d. server folds on fed_aggregate_scaling's tree at m 512
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    sizes = {"w1": (AGG_DIM // 2, 2), "b1": (AGG_DIM // 4,),
+             "w2": (AGG_DIM // 4, 2), "b2": (AGG_DIM // 4,)}
+    params = {k: torch.randn(s, generator=g, device=dev)
+              for k, s in sizes.items()}
+    stacked = {k: torch.randn((AGG_M,) + s, generator=g, device=dev)
+               for k, s in sizes.items()}
+    deltas = fed.unstack_tree(stacked, AGG_M)
+    w = torch.rand(AGG_M, generator=g, device=dev).cpu().numpy() + 0.5
+    for label, kw in (("fedavg", {}),
+                      ("fedopt", {"aggregator": "fedopt", "optimizer":
+                                  optim.sgd(1.0, momentum=0.9)})):
+        times = {}
+        res = {}
+        for mode, fn in (("list", fed.aggregate),
+                         ("sequential", fed.aggregate_stacked),
+                         ("pairwise", fed.aggregate_stacked)):
+            scfg = fed.ServerConfig(sum_mode=("sequential" if mode == "list"
+                                              else mode), **kw)
+            st = fed.init_server(params, scfg, AGG_M)
+            arg = deltas if mode == "list" else stacked
+            fn(st, scfg, arg, w)
+            _sync(dev)
+            t = time.perf_counter()
+            res[mode] = fn(st, scfg, arg, w)
+            _sync(dev)
+            times[mode] = (time.perf_counter() - t) * 1e3
+        if not _same_tree(res["list"], res["sequential"]):
+            raise AssertionError(f"10d {label}: sequential != list")
+        gap = max(float((a - b).abs().max()) for a, b in zip(
+            tree_lib.leaves(res["sequential"].params),
+            tree_lib.leaves(res["pairwise"].params)))
+        out["d"][label] = {"ms": times, "pairwise_gap_abs": gap}
+        log(f"[fed d] {label}: " + json.dumps(out["d"][label]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1188,7 +1516,8 @@ def main() -> int:
         opt = optim.adamw(optim.warmup_cosine(lr, 1, 10), weight_decay=0.1)
         step_fns[d] = step_lib.make_train_step(small, opt, gc_ef,
                                                clip_norm=1.0)
-        p, o, e = step_lib.init_train_state(small, opt, gc_ef, seed=0)
+        p, o, e = step_lib.init_train_state(small, opt, gc_ef, seed=0,
+                                           device="cpu")
         states[d] = tuple(tree_lib.map(lambda x: x.to(d), s)
                           for s in (p, o, e))
     tg = torch.Generator()
@@ -1227,7 +1556,15 @@ def main() -> int:
     algorithms = algorithms_phase(dev)
     clock.done("9 paper's algorithms, card vs CPU")
 
-    # -- 10. result lines -------------------------------------------------------
+    # -- 10. codecs and federation (codecs/*, fed/*), card vs CPU -------------
+    t10 = time.perf_counter()
+    codec_numbers = codec_phase(dev)
+    clock.done("10a codecs at yi-6b x4")
+    fed_numbers = fed_phase(dev)
+    clock.done("10b-d federation")
+    codec_numbers["phase_s"] = time.perf_counter() - t10
+
+    # -- 11. result lines -------------------------------------------------------
     names = {
         "encode": ("src/repro_torch/csrc/quantencode.cu",
                    "src/repro/kernels/quantencode.py:200", dk_counts),
@@ -1259,6 +1596,7 @@ def main() -> int:
               "train_x1_dithered": {"losses": losses1, "step_s": secs1},
               "serve_kernels": serve_times, "serve_x32": serve_numbers,
               "small_serve": small_serve, "algorithms": algorithms,
+              "codecs": codec_numbers, "federation": fed_numbers,
               "phase_s": clock.seconds}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

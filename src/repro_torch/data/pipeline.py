@@ -17,6 +17,8 @@ import dataclasses
 
 import torch
 
+from repro_torch import resolve_device
+
 _RANK = 32
 
 
@@ -61,11 +63,13 @@ class TokenStream:
 
 
 def batch_for_shape(cfg, batch_size: int, seq_len: int, step: int = 0,
-                    seed: int = 0, device="cpu") -> dict:
-    """A real batch for a text model: {"tokens": (B, seq_len + 1) int32}."""
+                    seed: int = 0, device=None) -> dict:
+    """A real batch for a text model: {"tokens": (B, seq_len + 1) int32},
+    on `device` (`cuda` unless asked for the CPU)."""
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"frontend={cfg.frontend!r} batches are not ported yet")
+    device = resolve_device(device)
     return TokenStream(cfg.vocab_size, seq_len, batch_size, seed,
                        device=str(device)).batch(step)
 
@@ -75,10 +79,12 @@ def batch_for_shape(cfg, batch_size: int, seq_len: int, step: int = 0,
 # ---------------------------------------------------------------------------
 def synthetic_regression(seed: int, n_samples: int, dim: int,
                          design: str = "gauss3", model: str = "student_t",
-                         device="cpu"):
+                         device=None):
     """b = A x* with heavy-tailed A and/or x* (paper Fig. 3a / Figs. 5–6):
     A Gaussian (cubed for design 'gauss3'); x* Student-t(1) (a Cauchy
-    draw), Gaussian cubed, or Gaussian. Returns (A, b, x*)."""
+    draw), Gaussian cubed, or Gaussian. Returns (A, b, x*) on `device`
+    (`cuda` unless asked for the CPU)."""
+    device = resolve_device(device)
     gen = _generator(seed, device)
     a = torch.randn(n_samples, dim, generator=gen, device=device)
     if design == "gauss3":
@@ -93,9 +99,11 @@ def synthetic_regression(seed: int, n_samples: int, dim: int,
 
 
 def synthetic_two_class(seed: int, n_per_class: int, dim: int,
-                        separation: float = 2.0, device="cpu"):
+                        separation: float = 2.0, device=None):
     """Two Gaussian clouds at ±separation/√dim·1, labels ±1 (paper Fig.
-    2a–b SVM protocol). Returns (x (2·n_per_class, dim), y)."""
+    2a–b SVM protocol). Returns (x (2·n_per_class, dim), y) on `device`
+    (`cuda` unless asked for the CPU)."""
+    device = resolve_device(device)
     gen = _generator(seed, device)
     mu = torch.full((dim,), separation, device=device) / torch.sqrt(
         torch.tensor(float(dim), device=device))

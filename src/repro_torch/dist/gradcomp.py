@@ -114,11 +114,14 @@ def _stoch_key(leaf_idx: int, round_idx: int, cfg: GradCompConfig,
 # ---------------------------------------------------------------------------
 # Leaf codec
 # ---------------------------------------------------------------------------
-def _to_chunks(x: torch.Tensor, chunk: int) -> torch.Tensor:
-    flat = x.to(torch.float32).reshape(-1)
-    c = -(-flat.numel() // chunk)
-    flat = torch.nn.functional.pad(flat, (0, c * chunk - flat.numel()))
-    return flat.reshape(c, chunk)
+def _to_chunks(x: torch.Tensor, chunk: int, lead: int = 0) -> torch.Tensor:
+    """x as f32 rows of `chunk`, zero-padded: (C, chunk), or with `lead`
+    leading lane axes kept, each lane flattened on its own."""
+    lanes = tuple(x.shape[:lead])
+    flat = x.to(torch.float32).reshape(lanes + (-1,))
+    c = -(-flat.shape[-1] // chunk)
+    flat = torch.nn.functional.pad(flat, (0, c * chunk - flat.shape[-1]))
+    return flat.reshape(lanes + (c, chunk))
 
 
 def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
@@ -130,44 +133,56 @@ def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def _exact_keep_mask(draw: torch.Tensor, k: int) -> torch.Tensor:
-    """Keep EXACTLY the k smallest of the (C, 1) draws: stable double
+    """Keep EXACTLY the k smallest of the (..., C, 1) draws: stable double
     argsort, ties broken by chunk index (identical on every worker)."""
-    order = torch.argsort(draw[:, 0], stable=True)
-    rank = torch.argsort(order, stable=True)
-    return (rank < k)[:, None]
+    order = torch.argsort(draw[..., 0], dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1, stable=True)
+    return (rank < k)[..., None]
 
 
 def _leaf_draws(leaf_idx: int, lc: int, rows: int, cfg: GradCompConfig,
                 round_idx: int, key, device) -> tuple:
     """Pre-drawn (dither (rows, chunk) | None, mask f32 (rows, 1) | None),
-    drawn at the logical chunk count `lc`, zero-extended over padding."""
+    drawn at the logical chunk count `lc`, zero-extended over padding.
+    Under a stack of keys (L, 2) (one per lane, rows == lc) each draw gets
+    a leading lane axis, lane l's bitwise the draw under key l alone."""
     if key is None and (cfg.dithered or cfg.keep_fraction < 1.0):
         key = _stoch_key(leaf_idx, round_idx, cfg, device)
+    lead = () if key is None else tuple(key.shape[:-1])
     dither = None
     if cfg.dithered:
         delta = 2.0 / (2 ** cfg.bits)
-        dither = _pad_rows(rnd.uniform(rnd.fold_in(key, 1), (lc, cfg.chunk),
-                                       minval=-delta / 2, maxval=delta / 2),
-                           rows)
+        dither = rnd.uniform(rnd.fold_in(key, 1), lead + (lc, cfg.chunk),
+                             minval=-delta / 2, maxval=delta / 2)
+        dither = dither if lead else _pad_rows(dither, rows)
     mask = None
     if cfg.keep_fraction < 1.0:
-        draw = rnd.uniform(rnd.fold_in(key, 2), (lc, 1))
+        draw = rnd.uniform(rnd.fold_in(key, 2), lead + (lc, 1))
         if cfg.exact_keep:
             keep = _exact_keep_mask(draw, cfg.kept_chunks(lc))
         else:
             keep = draw < cfg.keep_fraction
-        mask = _pad_rows(keep.to(torch.float32), rows)
+        mask = keep.to(torch.float32)
+        mask = mask if lead else _pad_rows(mask, rows)
     return dither, mask
+
+
+def _lead(key) -> int:
+    """Lane axes of a key: 0 for one key (2,), 1 for a stack (L, 2)."""
+    return 0 if key is None else key.ndim - 1
 
 
 def encode_leaf(x: torch.Tensor, leaf_idx: int, cfg: GradCompConfig,
                 round_idx: int = 0, key=None,
                 logical_chunks: int | None = None) -> dict:
-    """Encode one leaf → payload dict (see the module docstring)."""
-    chunks = _to_chunks(x, cfg.chunk)
-    lc = chunks.shape[0] if logical_chunks is None else logical_chunks
+    """Encode one leaf → payload dict (see the module docstring). Under a
+    stack of keys (L, 2), x is L lanes (L, ...) encoded in one kernel
+    launch, lane l under key l: the payload gains a leading lane axis, and
+    lane l is bitwise lane l's encode alone."""
+    chunks = _to_chunks(x, cfg.chunk, _lead(key))
+    lc = chunks.shape[-2] if logical_chunks is None else logical_chunks
     signs = _frame_signs(leaf_idx, cfg, x.device)
-    dither, mask = _leaf_draws(leaf_idx, lc, chunks.shape[0], cfg,
+    dither, mask = _leaf_draws(leaf_idx, lc, chunks.shape[-2], cfg,
                                round_idx, key, x.device)
     words, scale = kernel_ops.encode(chunks, signs, cfg.bits,
                                      dither=dither, mask=mask)
@@ -182,13 +197,14 @@ def encode_leaf_ef(x: torch.Tensor, leaf_idx: int, cfg: GradCompConfig,
                    logical_chunks: int | None = None,
                    residual_dtype=None) -> tuple:
     """`encode_leaf` plus the error-feedback residual u − D(E(u)), of x's
-    shape and dtype. The 1/keep rescale applies only on the dithered,
-    non-EF path; the decode rounds through `residual_dtype` (x's dtype by
-    default) before the subtract."""
-    chunks = _to_chunks(x, cfg.chunk)
-    lc = chunks.shape[0] if logical_chunks is None else logical_chunks
+    shape and dtype (lanes as in `encode_leaf`). The 1/keep rescale
+    applies only on the dithered, non-EF path; the decode rounds through
+    `residual_dtype` (x's dtype by default) before the subtract."""
+    lead = _lead(key)
+    chunks = _to_chunks(x, cfg.chunk, lead)
+    lc = chunks.shape[-2] if logical_chunks is None else logical_chunks
     signs = _frame_signs(leaf_idx, cfg, x.device)
-    dither, mask = _leaf_draws(leaf_idx, lc, chunks.shape[0], cfg,
+    dither, mask = _leaf_draws(leaf_idx, lc, chunks.shape[-2], cfg,
                                round_idx, key, x.device)
     rescale = (cfg.keep_fraction
                if (mask is not None and cfg.dithered
@@ -200,8 +216,9 @@ def encode_leaf_ef(x: torch.Tensor, leaf_idx: int, cfg: GradCompConfig,
     payload = {"words": words, "scale": scale}
     if mask is not None:
         payload["mask"] = mask
-    residual = resid.reshape(-1)[:x.numel()].reshape(x.shape).to(x.dtype)
-    return payload, residual
+    lanes = tuple(x.shape[:lead])
+    residual = resid.reshape(lanes + (-1,))[..., :math.prod(x.shape[lead:])]
+    return payload, residual.reshape(x.shape).to(x.dtype)
 
 
 def decode_leaf(payload: dict, leaf_idx: int, size: int, shape, dtype,

@@ -120,11 +120,12 @@ def make_train_step(cfg, opt, gc: G.GradCompConfig, num_workers: int = 1,
 
 
 def init_train_state(cfg, opt, gc: G.GradCompConfig, num_workers: int = 1,
-                     seed: int = 0, device="cpu"):
-    """Materialized (params, opt_state, ef) on `device`; EF leaves are
-    (m, *param shape) f32 zeros when the strategy uses error feedback."""
+                     seed: int = 0, device=None):
+    """Materialized (params, opt_state, ef) on `device` (`cuda` unless
+    asked for the CPU); EF leaves are (m, *param shape) f32 zeros when the
+    strategy uses error feedback."""
     _check_workers(num_workers)
-    params = model_lib.init_params(seed, cfg, device)
+    params = model_lib.init_params(seed, cfg, resolve_device(device))
     opt_state = opt.init(params)
     ef = (tree_lib.map(lambda p: torch.zeros(
         (num_workers,) + tuple(p.shape), dtype=torch.float32,

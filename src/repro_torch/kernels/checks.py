@@ -206,3 +206,16 @@ def check_quant_decode_attention(bits, dh, c, g, dev) -> float:
                 f"G={g} inv_rotate_v={inv}: max abs err {e}")
         err = max(err, e)
     return err
+
+
+def ratq_rung_sweep(ladder: int = 16, draws: int = 100_000,
+                    seed: int = 0) -> torch.Tensor:
+    """RATQ's relative ranges where its rung is decided: every f32 within
+    64 ulps of each power of two from 2^(1−h) to 1, then `draws` uniform
+    values in [0, 1) (CPU, f32). The rung is ⌈log2⌉ of these, so one ulp of
+    a device's log flips it at exactly these points."""
+    offsets = torch.arange(-64, 65, dtype=torch.int32)
+    near = [(torch.tensor(2.0 ** e, dtype=torch.float32).view(torch.int32)
+             + offsets).view(torch.float32) for e in range(1 - ladder, 1)]
+    g = torch.Generator().manual_seed(seed)
+    return torch.cat(near + [torch.rand(draws, generator=g)])

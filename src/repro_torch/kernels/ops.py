@@ -59,8 +59,15 @@ def fwht(x: torch.Tensor) -> torch.Tensor:
     return fwht_cuda(x.contiguous())
 
 
+def rotate(chunks: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
+    """The frame rotation applied chunk-wise, H·(D·x): the `transform`
+    stage of `repro_torch.codecs.stages`, on the FWHT kernel for a CUDA
+    tensor."""
+    return fwht(chunks * signs)
+
+
 def unrotate(x: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
-    """Inverse of the frame rotation H·(D·x): D·(H·x)."""
+    """Inverse of `rotate` (H orthonormal, D its own inverse): D·(H·x)."""
     return fwht(x) * signs
 
 

@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models import kvquant
 from repro_torch.models import layers as L
 from repro_torch.models.model import (ModelConfig, _require_attn_mlp,
@@ -53,11 +54,13 @@ def cache_len(cfg: ModelConfig, max_seq: int) -> int:
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
-                      dtype=None, device="cpu") -> DecodeState:
-    """Zero caches sized for decoding up to `max_seq` total positions."""
+                      dtype=None, device=None) -> DecodeState:
+    """Zero caches sized for decoding up to `max_seq` total positions, on
+    `device` (`cuda` unless asked for the CPU)."""
     if not cfg.decode_supported:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     _require_attn_mlp(cfg)
+    device = resolve_device(device)
     dt = dtype or cfg.compute_dtype
     nl = cfg.num_scanned
     c = cache_len(cfg, max_seq)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import resolve_device
 from repro_torch.models import layers as L
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -149,12 +150,13 @@ def param_shapes(cfg: ModelConfig) -> dict:
     }
 
 
-def init_params(seed: int, cfg: ModelConfig, device="cpu") -> dict:
-    """Random parameters from a seeded generator on `device`: norms 1,
-    matrices N(0, 0.02²). Same distribution as the reference's
-    `init_params`, not the same numbers (the tests carry JAX parameters over
-    with `repro_torch.convert`)."""
+def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
+    """Random parameters from a seeded generator on `device` (`cuda`
+    unless asked for the CPU): norms 1, matrices N(0, 0.02²). Same
+    distribution as the reference's `init_params`, not the same numbers
+    (the tests carry JAX parameters over with `repro_torch.convert`)."""
     dt = cfg.compute_dtype
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 

@@ -282,17 +282,19 @@ def test_synthetic_problems():
     (b = A x*, labels ±1 with the classes' means at ±separation/√dim), a
     pure function of the seed. Their draws are not the reference's (a
     torch.Generator, not threefry), so parity tests carry arrays across."""
-    a, b, x = TP.synthetic_regression(3, 40, 12)
+    a, b, x = TP.synthetic_regression(3, 40, 12, device="cpu")
     assert (a.shape, b.shape, x.shape) == ((40, 12), (40,), (12,))
     np.testing.assert_allclose(b.numpy(), (a @ x).numpy(), rtol=1e-6)
-    a2, _, x2 = TP.synthetic_regression(3, 40, 12)
+    a2, _, x2 = TP.synthetic_regression(3, 40, 12, device="cpu")
     assert torch.equal(a, a2) and torch.equal(x, x2)
     for design, model in (("gauss", "gauss3"), ("gauss3", "gauss")):
         ja, _, jx = JD.synthetic_regression(jax.random.key(0), 40, 12,
                                             design, model)
-        ta, _, tx = TP.synthetic_regression(0, 40, 12, design, model)
+        ta, _, tx = TP.synthetic_regression(0, 40, 12, design, model,
+                                         device="cpu")
         assert ta.shape == ja.shape and tx.shape == jx.shape
-    xs, ys = TP.synthetic_two_class(1, 500, 16, separation=2.0)
+    xs, ys = TP.synthetic_two_class(1, 500, 16, separation=2.0,
+                                     device="cpu")
     assert xs.shape == (1000, 16)
     np.testing.assert_array_equal(ys.numpy(), np.r_[np.ones(500),
                                                     -np.ones(500)])

@@ -11,7 +11,9 @@ unpack_dequant (also on whole-range words, unaligned, trimmed) and
 quantize_pack must be bitwise equal to the plain versions; the KV-cache
 decode attention within rtol = atol = 2e-4, the bound the JAX package
 holds its Pallas kernel to (exponentials and sums run in another
-order)."""
+order). The codecs' paths (RATQ's rung, `ops.rotate`, lane-stacked
+encode / encode_ef / decode, sparsify-then-embed's ties) are held bitwise
+card against CPU or against the per-lane calls."""
 import pytest
 import torch
 
@@ -166,3 +168,97 @@ def test_cuda_draws_match_cpu(cuda):
     keys = rnd.split(rnd.key(6), 10)
     assert torch.equal(rnd.uniform(keys.to(cuda), (10, 33)).cpu(),
                        rnd.uniform(keys, (10, 33)))
+
+
+def _codec_tree(seed, dev):
+    """A small parameter tree: sizes not multiples of the chunk, one leaf
+    under a chunk."""
+    g = torch.Generator().manual_seed(seed)
+    return {"w": (torch.randn(37, 19, generator=g) ** 3).to(dev),
+            "s": torch.randn(5, generator=g).to(dev),
+            "v": torch.randn(3, 5, 7, generator=g).to(dev)}
+
+
+def _same(a, b):
+    from repro_torch import tree as tree_lib
+    la, lb = tree_lib.leaves(a), tree_lib.leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_ratq_rung_matches_cpu(cuda):
+    """RATQ's rung on the card over the sweep of every f32 within 64 ulps
+    of each power of two from 2^-15 to 1 and 10^5 uniform draws: the CPU
+    port's rung (itself held to the reference's), bit for bit."""
+    from repro_torch.codecs import stages
+    x = C.ratq_rung_sweep(16)
+    assert torch.equal(stages.ratq_rung(x.to(cuda), 16).cpu(),
+                       stages.ratq_rung(x, 16))
+
+
+@pytest.mark.cuda
+def test_cuda_rotate_matches_plain(cuda):
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(0)
+    chunks = torch.randn(37, 256, generator=g)
+    signs = torch.where(torch.rand(256, generator=g) < 0.5, -1.0, 1.0)
+    ops.reset_launch_counts()
+    got = ops.rotate(chunks.to(cuda), signs.to(cuda))
+    assert ops.launch_counts()["fwht"] == 1
+    assert torch.equal(got.cpu(), ref.fwht(chunks * signs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 7, 512])
+@pytest.mark.parametrize("name,budget,kw", [
+    ("ndsc", 2.0, dict(chunk=32)),
+    ("ndsc", 0.5, dict(chunk=64, dithered=True)),
+    ("ratq", 1.0, dict(chunk=32)),
+    ("ratq", 4.0, dict(chunk=64))])
+def test_cuda_lane_stacked_codecs_match_per_lane(cuda, lanes, name, budget,
+                                                 kw):
+    """encode, encode_ef and decode over L lanes on the card (one kernel
+    launch per leaf), bitwise the per-lane calls on the card."""
+    from repro_torch import codecs
+    from repro_torch import random as rnd
+    from repro_torch.codecs import base
+    c = codecs.make(name, budget, **kw)
+    trees = [_codec_tree(s, cuda) for s in range(lanes)]
+    stacked = base.stack(trees)
+    keys = rnd.split(rnd.key(3, device=cuda), lanes)
+    meta = c.meta(trees[0])
+    ops.reset_launch_counts()
+    wire = base.encode_lanes(c, keys, stacked, 2)
+    dec = base.decode_lanes(c, wire, meta, lanes)
+    counts = ops.launch_counts()
+    assert counts["unpack_dequant"] == 3
+    assert counts["encode" if name == "ndsc" else "quantize_pack"] == 3
+    resid = None
+    if c.encode_ef is not None:
+        wire2, resid = base.encode_ef_lanes(c, keys, stacked, meta, 2)
+        _same(wire, wire2)
+    for i in range(lanes):
+        one = c.encode(keys[i], trees[i], 2)
+        _same(one, base.lane(wire, i))
+        _same(c.decode(one, meta), base.lane(dec, i))
+        if resid is not None:
+            _same(c.encode_ef(keys[i], trees[i], meta, 2)[1],
+                  base.lane(resid, i))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["topk", "randk"])
+def test_cuda_sparsify_then_embed_matches_cpu(cuda, mode):
+    """A leaf of repeated magnitudes (ties at the top-k threshold): the
+    card's survivors, words and scales are the CPU's, bit for bit."""
+    from repro_torch import codecs
+    from repro_torch import random as rnd
+    x = torch.tensor([1.0, -3.0, 2.0, 3.0, -2.0, 3.0, 1.0, -1.0] * 1000)
+    c = codecs.make("sparsify_then_embed", 1.0, mode=mode, chunk=64)
+    host = c.encode(rnd.key(4), {"x": x}, 1)
+    card = c.encode(rnd.key(4, device=cuda), {"x": x.to(cuda)}, 1)
+    _same(host, card)
+    meta = c.meta({"x": x})
+    _same(c.decode(host, meta), c.decode(card, meta))

@@ -145,7 +145,7 @@ def test_extract_then_scatter_is_identity(base, bits, slot_from, slot_to):
     _, st = TD.prefill(tcfg, tparams, toks, 16)
     single = TD.extract_slot(st, slot_from)
     assert single.caches[("k_words" if bits else "k")].shape[2] == 7
-    fresh = TD.init_decode_state(tcfg, 3, 16)
+    fresh = TD.init_decode_state(tcfg, 3, 16, device="cpu")
     out = TD.scatter_slot(fresh, single, slot_to)
     for name, x in out.caches.items():
         if name in TD.SHARED_CACHE_KEYS:
@@ -167,7 +167,7 @@ def test_serve_step_refuses_a_mesh_and_other_blocks(base):
     _, _, tparams = base
     _, tcfg = _configs(base, None)
     assert TS.make_serve_step(tcfg).func is TD.decode_step
-    st = TD.init_decode_state(tcfg, 1, 8)
+    st = TD.init_decode_state(tcfg, 1, 8, device="cpu")
     tok = torch.zeros((1, 1), dtype=torch.int32)
     logits, _ = TS.make_serve_step(tcfg, "cpu")(tparams, st, tok)
     assert bool(torch.isfinite(logits).all())
@@ -177,9 +177,9 @@ def test_serve_step_refuses_a_mesh_and_other_blocks(base):
         TS.make_serve_step(tcfg, mesh=("cuda:0", "cuda:1"))
     moe = dataclasses.replace(tcfg, block="attn_moe")
     with pytest.raises(NotImplementedError, match="attn_moe"):
-        TD.init_decode_state(moe, 1, 8)
+        TD.init_decode_state(moe, 1, 8, device="cpu")
     state_bytes = TD.state_bytes(TD.init_decode_state(
-        dataclasses.replace(tcfg, kv_quant_bits=8), 2, 16))
+        dataclasses.replace(tcfg, kv_quant_bits=8), 2, 16, device="cpu"))
     # 2 layers × 2 slots × 16 positions × 2 heads × (8 words + 1 scale) ×
     # 4 B × (K and V), plus the 2 positions
     assert state_bytes == 2 * 2 * 16 * 2 * 9 * 4 * 2 + 2 * 4

@@ -204,8 +204,8 @@ def test_more_workers_raise(setup):
 
 def test_token_stream_deterministic():
     cfg = tconfigs.get_reduced("yi-6b")
-    a = batch_for_shape(cfg, 3, 9, step=4, seed=1)["tokens"]
-    b = batch_for_shape(cfg, 3, 9, step=4, seed=1)["tokens"]
+    a = batch_for_shape(cfg, 3, 9, step=4, seed=1, device="cpu")["tokens"]
+    b = batch_for_shape(cfg, 3, 9, step=4, seed=1, device="cpu")["tokens"]
     c = TokenStream(cfg.vocab_size, 9, 3, seed=1).batch(5)["tokens"]
     assert a.shape == (3, 10) and a.dtype == torch.int32
     assert torch.equal(a, b) and not torch.equal(a, c)
