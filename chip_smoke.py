@@ -99,10 +99,42 @@ prints its seconds):
      tree (dim 1024) at m 512: sequential aggregate_stacked bitwise the
      list aggregate (fedavg, fedopt), with pairwise's gap and each
      layout's ms;
- 11. print {"kernels": [...]} and, last, the device line.
+     e. (in phase 3) quantize_pack at the RATQ train shape: the 12 leaves
+     of the 4-layer tree in chunks of 128 at R 2 (one RATQ encode's 12
+     launches), checked bitwise, timed with its bound;
+ 11. distributed consensus and the mesh federation (repro_torch.dist,
+     repro_torch.fed.mesh): a. one NCCL rank in this process at phase 4's
+     size: 2 steps of launch.train.train(group=...) bitwise the same 2
+     steps with group=None (loss and params), then alltoall_zero1 against
+     allgather_packed (AdamW, no clip) bitwise after one step, with s/step
+     and launches per step (12 encode_ef, unpack_dequant and fwht for the
+     all-gather; 12 encode and 24 unpack_dequant and fwht for ZeRO-1);
+     b-d. four ranks sharing the card (this script with --rank, fresh
+     interpreters on a file:// store, gloo by the backend rule), results
+     in OUT_DIR/dist/: b. yi-6b at full width cut to 1 layer
+     (697,315,328 values, 12 leaves), global batch 8, seq 128, R 4, chunk
+     256, SGD without clip, 2 steps of each of psum, psum_decoded,
+     allgather_packed with EF and alltoall_zero1: every rank's params
+     bitwise equal after each step, ZeRO-1 equal to all-gather after one
+     step, the payload bytes a worker puts into the all-gather equal to
+     wire_bytes_tree's to the byte, the words gathered from each rank of
+     a 4096-wide leaf bitwise its own; each rank's peak memory, s/step,
+     seconds in the collectives (gloo over loopback on one card: nothing
+     of NCCL) and launches per step; c. the reduced yi-6b at m 4 on the
+     card and on the CPU from the same weights and tokens, 2 steps of
+     allgather_packed with EF, within phase 6's bounds; d.
+     fed_cohort_scaling's m 512 under backend="mesh" (128 lanes a rank):
+     bitwise the single-process vmap backend on the card (ledger and
+     params), one encode_ef and one unpack_dequant launch per round on
+     each rank, pairwise's gap and rounds per second; fed_heterogeneous
+     (phase 10b's runs) under the mesh backend: ledger and participants
+     equal to the vmap backend's;
+ 12. print {"kernels": [...]} and, last, the device line.
 
 Without CUDA it exits non-zero before printing any result. Nothing here
-imports JAX or the JAX package.
+imports JAX or the JAX package. `python3 chip_smoke.py --rank R --world 4
+--init URL --out DIR` is one rank of phase 11 b-d, which the script starts
+itself.
 """
 from __future__ import annotations
 
@@ -1261,6 +1293,466 @@ def fed_phase(dev) -> dict:
     return out
 
 
+# -- satellite of phase 3: quantize_pack at the RATQ train shape --------------
+RATQ_CHUNK, RATQ_BITS = 128, 2
+
+
+def time_quantize_pack_ratq(ops, ref, dev, cfg) -> dict:
+    """quantize_pack on the 12 leaves of `cfg`'s tree in chunks of 128 at
+    R 2 (one RATQ encode's 12 launches): checked against the plain
+    version, timed (CUDA events, medians of 5), bounded by its bytes."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import model as model_lib
+    shapes = tree_lib.leaves(model_lib.param_shapes(cfg),
+                             is_leaf=lambda s: isinstance(s, tuple))
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    leaves = []
+    for shape in shapes:
+        rows = -(-math.prod(shape) // RATQ_CHUNK)
+        x = torch.randn(rows, RATQ_CHUNK, generator=g, device=dev)
+        leaves.append((x, x.abs().amax(-1, keepdim=True)))
+    for x, s in leaves:
+        if not torch.equal(ops.quantize_pack(x, s, RATQ_BITS),
+                           ref.quantize_pack(x, s, RATQ_BITS)):
+            raise AssertionError(f"quantize_pack differs at {tuple(x.shape)}")
+    coords = sum(x.numel() for x, _ in leaves)
+    rows = sum(x.shape[0] for x, _ in leaves)
+    ops.reset_launch_counts()
+    for x, s in leaves:
+        ops.quantize_pack(x, s, RATQ_BITS)
+    launches = ops.launch_counts()["quantize_pack"]
+    # read x and the row scales, write the 2-bit words
+    b, by = bound_ms(coords * (4 + RATQ_BITS / 8) + rows * 4, coords * 10)
+    out = {"leaves": len(leaves), "rows": rows, "coordinates": coords,
+           "launches_per_encode": launches,
+           "ms": timed(lambda: [ops.quantize_pack(x, s, RATQ_BITS)
+                                for x, s in leaves]),
+           "plain_ms": timed(lambda: [ref.quantize_pack(x, s, RATQ_BITS)
+                                      for x, s in leaves], 3),
+           "library_ms": None, "bound_ms": b, "bound_by": by,
+           "max_abs_err": 0.0}
+    del leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 11: distributed consensus and the mesh federation -----------------
+# a. one NCCL rank in this process at phase 4's size; b-d. four ranks
+#    sharing the card (fresh interpreters: this script with --rank), gloo by
+#    the backend rule, each writing its results to OUT_DIR/dist/.
+DIST_RANKS = 4
+DIST_LR = 1e-2                # b: SGD, no clip
+DIST_STEPS = 2
+RANK_TIMEOUT_S = 900.0
+
+
+def _leaves_equal(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def one_rank_phase(dev, cfg4, gc_ef) -> dict:
+    """11a: train(group=...) on an NCCL world of 1 against group=None
+    (loss and params bitwise), then ZeRO-1 against all-gather after one
+    step (clip off, AdamW), with s/step and launches per step."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import batch_for_shape
+    from repro_torch.dist import step as step_lib
+    from repro_torch.dist import zero as zero_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.launch.train import train
+    from repro_torch.optimizer import optim
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        group, _ = mesh.init_workers(0, 1, f"file://{tmp}/store", device=dev)
+        try:
+            out["backend"] = dist.get_backend(group)
+            log(f"[dist a] world of 1, backend {out['backend']}")
+            runs = {}
+            for label, g in (("group", group), ("none", None)):
+                ops.reset_launch_counts()
+                params, losses, secs = train(cfg4, steps=DIST_STEPS,
+                                             batch_size=8, seq_len=128,
+                                             gc=gc_ef, lr=3e-4, log_every=1,
+                                             device=dev, group=g)
+                counts = ops.launch_counts()
+                runs[label] = (tree_lib.leaves(params), losses, secs, counts)
+                if label == "group":
+                    for k in ("encode_ef", "unpack_dequant", "fwht"):
+                        if counts[k] != 12 * DIST_STEPS:
+                            raise AssertionError(f"11a: {k} {counts[k]}")
+                del params
+            (pg, lg, sg, cg), (pn, ln, sn, _) = runs["group"], runs["none"]
+            if not (lg == ln and _leaves_equal(pg, pn)):
+                raise AssertionError("11a: group of 1 != no group")
+            out.update({"losses": lg, "step_s_group": sg, "step_s_none": sn,
+                        "launches": {k: v for k, v in cg.items() if v}})
+            del runs, pg, pn
+            torch.cuda.empty_cache()
+
+            batch = batch_for_shape(cfg4, 8, 128, 0, 0, device=dev)
+            res = {}
+            for strategy in ("alltoall_zero1", "allgather_packed"):
+                gc = dataclasses.replace(gc_ef, strategy=strategy)
+                opt = optim.adamw(optim.warmup_cosine(3e-4, 1, 3),
+                                  weight_decay=0.1)
+                if strategy == "alltoall_zero1":
+                    st = step_lib.init_zero_state(cfg4, opt, gc, group,
+                                                  seed=0, device=dev)
+                    fn = step_lib.make_zero_train_step(cfg4, opt, gc, group)
+                else:
+                    st = step_lib.init_train_state(cfg4, opt, gc, group,
+                                                   seed=0, device=dev)
+                    fn = step_lib.make_train_step(cfg4, opt, gc, group)
+                ops.reset_launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                st = fn(*st, batch)
+                torch.cuda.synchronize()
+                res[strategy] = (tree_lib.leaves(st[0]),
+                                 time.perf_counter() - t,
+                                 {k: v for k, v in ops.launch_counts().items()
+                                  if v})
+                del st
+                torch.cuda.empty_cache()
+            want = {"alltoall_zero1": {"encode": 12, "unpack_dequant": 24,
+                                       "fwht": 24},
+                    "allgather_packed": {"encode_ef": 12,
+                                         "unpack_dequant": 12, "fwht": 12}}
+            for strategy, (_, _, counts) in res.items():
+                if counts != want[strategy]:
+                    raise AssertionError(f"11a: {strategy} launches {counts}")
+            owned, full = res["alltoall_zero1"][0], res["allgather_packed"][0]
+            for o, p in zip(owned, full):
+                if not torch.equal(zero_lib.from_owned(
+                        o, p.numel(), tuple(p.shape), p.dtype), p):
+                    raise AssertionError("11a: ZeRO-1 != all-gather")
+            out["zero1_vs_allgather"] = {
+                k: {"step_s": v[1], "launches": v[2]} for k, v in res.items()}
+            del res, owned, full
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log("[dist a] " + json.dumps(out))
+    return out
+
+
+def rank_consensus(group, dev, cfg, rank: int, world: int) -> dict:
+    """11b on one rank: 2 steps of each strategy at `cfg`, SGD, no clip."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import batch_for_shape
+    from repro_torch.dist import gradcomp as G
+    from repro_torch.dist import sharding
+    from repro_torch.dist import step as step_lib
+    from repro_torch.dist import zero as zero_lib
+    from repro_torch.kernels import ops
+    from repro_torch.optimizer import optim
+    out = {}
+    ag1 = None
+    for strategy in ("psum", "psum_decoded", "allgather_packed",
+                     "alltoall_zero1"):
+        gc = G.GradCompConfig(bits=4, chunk=256, strategy=strategy)
+        opt = optim.sgd(DIST_LR)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero = strategy == "alltoall_zero1"
+        if zero:
+            st = step_lib.init_zero_state(cfg, opt, gc, group, seed=0,
+                                          device=dev)
+            fn = step_lib.make_zero_train_step(cfg, opt, gc, group)
+        else:
+            st = step_lib.init_train_state(cfg, opt, gc, group, seed=0,
+                                           device=dev)
+            fn = step_lib.make_train_step(cfg, opt, gc, group)
+        steps = []
+        for s in range(DIST_STEPS):
+            batch = batch_for_shape(cfg, 8, 128, s, 0, device=dev)
+            sharding.reset_transport_counts()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            *st, met = fn(*st, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            tc = sharding.transport_counts()
+            rec = {"s": dt, "loss": float(met["loss"]),
+                   "collective_s": sum(v["seconds"] for v in tc.values()),
+                   "bytes": {k: v["bytes"] for k, v in tc.items()},
+                   "allocated_GB": torch.cuda.memory_allocated() / 1e9,
+                   "launches": {k: v for k, v in ops.launch_counts().items()
+                                if v}}
+            if not zero:
+                sharding.check_replicas_equal(st[0], group)
+                rec["replicas_equal"] = True
+            if strategy == "allgather_packed":
+                want = G.wire_bytes_tree(st[0], gc, world)["payload_bytes"]
+                if tc["all_gather"]["bytes"] != want:
+                    raise AssertionError(
+                        f"11b: {tc['all_gather']['bytes']} payload bytes "
+                        f"sent, the audit says {want}")
+                if s == 0:
+                    ag1 = [p.clone() for p in tree_lib.leaves(st[0])]
+            if zero and s == 0:
+                same = True
+                for o, p in zip(tree_lib.leaves(st[0]), ag1):
+                    full = zero_lib.to_owned(p, gc.chunk, world)
+                    rows = full.shape[0] // world
+                    same &= torch.equal(o, full[rank * rows:
+                                                (rank + 1) * rows])
+                if not same:
+                    raise AssertionError("11b: ZeRO-1 != all-gather")
+                rec["zero1_eq_allgather"] = True
+                ag1 = None
+            steps.append(rec)
+            print(f"[rank {rank}] {strategy} step {s}: " + json.dumps(rec),
+                  flush=True)
+        out[strategy] = {"steps": steps, "peak_mem_GB":
+                         torch.cuda.max_memory_allocated() / 1e9}
+        del st
+    # the words rank 0 receives from rank r are rank r's own: every rank
+    # re-encodes each rank's seeded 4096-wide leaf
+    gc = G.GradCompConfig(bits=4, chunk=256)
+
+    def leaf_of(r):
+        g = torch.Generator(device=dev)
+        g.manual_seed(100 + r)
+        return torch.randn(1, 4096, generator=g, device=dev)
+
+    gathered = sharding.all_gather_stack(
+        G.encode_leaf(leaf_of(rank), 0, gc)["words"], group)
+    out["words_from_each_rank"] = all(
+        torch.equal(gathered[r], G.encode_leaf(leaf_of(r), 0, gc)["words"])
+        for r in range(world))
+    if not out["words_from_each_rank"]:
+        raise AssertionError("11b: gathered words differ from the senders'")
+    return out
+
+
+def rank_card_vs_cpu(group, dev, small) -> dict:
+    """11c on one rank: the reduced model, 2 steps of allgather_packed with
+    EF on the card and on the CPU from the same weights and tokens."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.dist import gradcomp as G
+    from repro_torch.dist import step as step_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.optimizer import optim
+    lr = 3e-4
+    gc = G.GradCompConfig()
+    p0 = model_lib.init_params(0, small, "cpu")
+    g = torch.Generator()
+    g.manual_seed(4)
+    toks = [torch.randint(0, small.vocab_size, (8, 17), generator=g,
+                          dtype=torch.int32) for _ in range(DIST_STEPS)]
+    runs = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        opt = optim.adamw(optim.warmup_cosine(lr, 1, 10), weight_decay=0.1)
+        fn = step_lib.make_train_step(small, opt, gc, group, clip_norm=1.0)
+        params = tree_lib.map(lambda x: x.clone().to(d), p0)
+        st = (params, opt.init(params), tree_lib.map(
+            lambda x: torch.zeros((1,) + tuple(x.shape), device=d), params))
+        hist = []
+        for s in range(DIST_STEPS):
+            *st, met = fn(*st, {"tokens": toks[s].to(d)})
+            # copies: the step updates the params in place
+            hist.append((float(met["loss"]),
+                         [x.detach().cpu().clone()
+                          for x in tree_lib.leaves(st[0])]))
+        runs[label] = hist
+    out = []
+    for s in range(DIST_STEPS):
+        (lc, pc), (lg, pg) = runs["cpu"][s], runs["card"][s]
+        diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pc, pg)])
+        rec = {"loss_cpu": lc, "loss_card": lg,
+               "max_dparam": float(diffs.max()),
+               "median_dparam": float(diffs.median())}
+        # phase 6's bounds
+        if not (abs(lc - lg) <= 1e-4 * abs(lc)
+                and rec["max_dparam"] <= 3 * lr * (s + 1)
+                and rec["median_dparam"] <= 1e-6):
+            raise AssertionError(f"11c: card and CPU disagree: {rec}")
+        out.append(rec)
+    return {"steps": out}
+
+
+def rank_mesh_fed(group, dev, rank: int, cohort_m: int, het_rounds: int,
+                  cohort_rounds: int) -> dict:
+    """11d on one rank: fed_cohort_scaling's m 512 and fed_heterogeneous
+    under backend="mesh"; rank 0 also runs the single-process vmap backend
+    on the card and compares."""
+    from repro_torch import codecs, fed
+    from repro_torch.dist import sharding
+    from repro_torch.fed import budget
+    from repro_torch.kernels import ops
+    out = {}
+    shards, lr, _ = fed_problem(cohort_m, FED_DIM, COHORT_PER, 0.0)
+    codec = codecs.make("ndsc", 2.0, chunk=FED_CHUNK)
+    cfg = fed.FedConfig(num_rounds=1, seed=0)
+
+    def make(backend, **server_kw):
+        return fed.Federation(
+            ls_loss, {"x": torch.zeros(FED_DIM)}, shards, codec,
+            fed.ClientConfig(lr=lr), fed.ServerConfig(**server_kw), seed=0,
+            backend=backend, group=group if backend == "mesh" else None,
+            device=dev)
+
+    fm = make("mesh")
+    recs = [fm.run_round(cfg, 0)]
+    ops.reset_launch_counts()
+    recs.append(fm.run_round(cfg, 1))
+    _sync(dev)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    if counts.get("encode_ef") != 1 or counts.get("unpack_dequant") != 1:
+        raise AssertionError(f"11d: a mesh round launched {counts}")
+    t = time.perf_counter()
+    for r in range(2, 2 + cohort_rounds):
+        recs.append(fm.run_round(cfg, r))
+    _sync(dev)
+    out["cohort"] = {"lanes_per_rank": cohort_m // sharding.num_workers(
+        group), "launches_per_round": counts,
+        "rounds_per_s": cohort_rounds / (time.perf_counter() - t),
+        "wire_bytes_per_round": recs[0]["wire_bytes"]}
+    sharding.check_replicas_equal(fm.server.params, group, "server params")
+    fp = make("mesh", sum_mode="pairwise")
+    for r in range(2 + cohort_rounds):
+        fp.run_round(cfg, r)
+    out["cohort"]["pairwise_gap_abs"] = float(
+        (fp.server.params["x"] - fm.server.params["x"]).abs().max())
+    if rank == 0:
+        fv = make("vmap")
+        vrecs = [fv.run_round(cfg, r) for r in range(2 + cohort_rounds)]
+        if not (vrecs == recs and _same_tree(fv.server, fm.server)):
+            raise AssertionError("11d: mesh != vmap at m 512")
+        out["cohort"]["mesh_eq_vmap"] = True
+
+    # fed_heterogeneous (phase 10b's runs, the f32 loss) under the mesh
+    shards, lr, norms = fed_problem(FED_M, FED_DIM, FED_PER, 1.0)
+    rates = budget.allocate("norm_proportional", 1.0 * FED_M, FED_M,
+                            norms=norms, min_rate=0.25)
+    cs = [codecs.make("ndsc", float(r), chunk=FED_CHUNK) for r in rates]
+    out["het"] = {}
+    for label, server_kw, fed_kw in (
+            ("fedavg", {}, {}),
+            ("fedmem partial", {"aggregator": "fedmem", "server_lr": 0.25},
+             {"participation": 0.5, "dropout": 0.2})):
+        runs = {}
+        for backend in ("mesh", "vmap") if rank == 0 else ("mesh",):
+            f = fed.Federation(
+                ls_loss, {"x": torch.zeros(FED_DIM)}, shards, cs,
+                fed.ClientConfig(lr=lr), fed.ServerConfig(**server_kw),
+                seed=0, backend=backend,
+                group=group if backend == "mesh" else None, device=dev)
+            _sync(dev)
+            t = time.perf_counter()
+            h = f.run(fed.FedConfig(num_rounds=het_rounds, seed=0,
+                                    **fed_kw))
+            _sync(dev)
+            runs[backend] = (f, h, time.perf_counter() - t)
+        f, h, secs = runs["mesh"]
+        if h["wire_bytes"] != h["analytic_bytes"]:
+            raise AssertionError(f"11d {label}: ledger != audit")
+        rec = {"mesh_s": secs, "wire_bytes_per_round": h["wire_bytes"][0]}
+        if rank == 0:
+            fv, hv, _ = runs["vmap"]
+            for k in ("participants", "stragglers", "wire_bytes",
+                      "analytic_bytes"):
+                if hv[k] != h[k]:
+                    raise AssertionError(f"11d {label}: {k} differs")
+            rec["params_bitwise_vmap"] = _same_tree(fv.server, f.server)
+        out["het"][label] = rec
+    return out
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 11 b-d (this script run with --rank)."""
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--init", required=True)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh
+    from repro_torch.models import model as model_lib
+    model_lib.disable_tf32()
+    group, dev = mesh.init_workers(args.rank, args.world, args.init,
+                                   device="cuda")
+    out = {"rank": args.rank, "backend": dist.get_backend(group)}
+    clock = time.perf_counter()
+    try:
+        cfg1 = dataclasses.replace(configs.get("yi-6b"), num_layers=1)
+        out["b"] = rank_consensus(group, dev, cfg1, args.rank, args.world)
+        torch.cuda.empty_cache()
+        out["b_s"] = time.perf_counter() - clock
+        out["c"] = rank_card_vs_cpu(group, dev,
+                                    configs.get_reduced("yi-6b"))
+        out["c_s"] = time.perf_counter() - clock - out["b_s"]
+        out["d"] = rank_mesh_fed(group, dev, args.rank, COHORT_M,
+                                 FED_ROUNDS, COHORT_ROUNDS)
+        out["d_s"] = (time.perf_counter() - clock - out["b_s"]
+                      - out["c_s"])
+    finally:
+        dist.destroy_process_group()
+    Path(args.out, f"rank{args.rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def ranks_phase() -> dict:
+    """11 b-d: four ranks of this script sharing the card; their results,
+    checked and summarised."""
+    from repro_torch.launch import mesh
+    out_dir = OUT_DIR / "dist"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("rank*.json"):
+        old.unlink()
+    torch.cuda.empty_cache()
+    log(f"[dist] this process holds {torch.cuda.memory_reserved() / 1e9:.2f}"
+        f" GB; the card has {torch.cuda.mem_get_info()[0] / 1e9:.2f} GB "
+        "free")
+    t = time.perf_counter()
+    res = mesh.run_local_ranks(
+        lambda r, init: [str(ROOT / "chip_smoke.py"), "--rank", str(r),
+                         "--world", str(DIST_RANKS), "--init", init,
+                         "--out", str(out_dir)],
+        DIST_RANKS, RANK_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    for r, (rc, so, se) in enumerate(res):
+        (out_dir / f"rank{r}.log").write_text(so + "\n---- stderr\n" + se)
+        if rc != 0:
+            raise AssertionError(f"11: rank {r} exited {rc}:\n{se[-4000:]}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(DIST_RANKS)]
+    summary = {"wall_s": wall, "backend": [r["backend"] for r in ranks],
+               "seconds": {k: [r[k] for r in ranks]
+                           for k in ("b_s", "c_s", "d_s")}}
+    b = {}
+    for strategy in ranks[0]["b"]:
+        if strategy == "words_from_each_rank":
+            continue
+        per = [r["b"][strategy] for r in ranks]
+        b[strategy] = {
+            "step_s": [[s["s"] for s in p["steps"]] for p in per],
+            "collective_s (gloo over loopback, one card)":
+                [[s["collective_s"] for s in p["steps"]] for p in per],
+            "bytes_per_step_rank0": per[0]["steps"][0]["bytes"],
+            "launches_per_step_rank0": per[0]["steps"][0]["launches"],
+            "peak_mem_GB": [p["peak_mem_GB"] for p in per],
+            "loss": [s["loss"] for s in per[0]["steps"]]}
+    summary["b"] = b
+    summary["c"] = ranks[0]["c"]
+    summary["d"] = ranks[0]["d"]
+    summary["d"]["cohort"]["rounds_per_s_all_ranks"] = [
+        r["d"]["cohort"]["rounds_per_s"] for r in ranks]
+    for k, v in summary.items():
+        log(f"[dist {k}] " + json.dumps(v))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1457,6 +1949,11 @@ def main() -> int:
         results[name]["max_abs_err"] = max(err[name], r["max_abs_err"])
     clock.done("3d serve kernels at serve shapes")
 
+    # -- 3e. quantize_pack at the RATQ train shape ----------------------------
+    ratq_pack = time_quantize_pack_ratq(ops, ref, dev, cfg4)
+    log(json.dumps({"kernel": "quantize_pack/ratq_train", **ratq_pack}))
+    clock.done("3e quantize_pack at the RATQ train shape")
+
     # -- 4. the main path: full-width yi-6b, 4 layers, launcher defaults -----
     per_step = []
 
@@ -1564,7 +2061,13 @@ def main() -> int:
     clock.done("10b-d federation")
     codec_numbers["phase_s"] = time.perf_counter() - t10
 
-    # -- 11. result lines -------------------------------------------------------
+    # -- 11. distributed consensus and the mesh federation --------------------
+    dist_a = one_rank_phase(dev, cfg4, gc_ef)
+    clock.done("11a one NCCL rank")
+    dist_ranks = ranks_phase()
+    clock.done("11b-d four ranks sharing the card")
+
+    # -- 12. result lines -------------------------------------------------------
     names = {
         "encode": ("src/repro_torch/csrc/quantencode.cu",
                    "src/repro/kernels/quantencode.py:200", dk_counts),
@@ -1597,6 +2100,8 @@ def main() -> int:
               "serve_kernels": serve_times, "serve_x32": serve_numbers,
               "small_serve": small_serve, "algorithms": algorithms,
               "codecs": codec_numbers, "federation": fed_numbers,
+              "quantize_pack_ratq_train": ratq_pack,
+              "dist_one_rank": dist_a, "dist_four_ranks": dist_ranks,
               "phase_s": clock.seconds}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -1608,4 +2113,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if "--rank" in sys.argv[1:]
+             else main())

@@ -1,10 +1,12 @@
 """repro_torch.fed — federated client–server simulation with heterogeneous
-budgets (port of `repro.fed`, without its mesh backend).
+budgets (port of `repro.fed`).
 
 Per-client bit budgets R_i, partial participation, stragglers, error
 feedback on params-deltas, and a per-round wire-bytes ledger equal to the
 analytic audit to the byte. Clients sharing a (codec spec, client config,
-data signature) run as one cohort of lanes, one kernel launch per leaf.
+data signature) run as one cohort of lanes, one kernel launch per leaf;
+`backend="mesh"` splits a cohort's lanes over the ranks of a
+`torch.distributed` group (`repro_torch.fed.mesh`).
 
     from repro_torch import codecs
     from repro_torch.fed import Federation, FedConfig, ClientConfig
@@ -21,6 +23,8 @@ from repro_torch.fed.clients import (ClientConfig, ClientState, concat_stacks,
                                      local_sgd, make_client_round,
                                      make_cohort_round, stack_padded,
                                      stack_trees, unstack_tree)
+from repro_torch.fed.mesh import (aggregate_stacked_mesh, default_mesh,
+                                  make_mesh_cohort_round, mesh_weighted_mean)
 from repro_torch.fed.rounds import (BACKENDS, FedConfig, Federation,
                                     cohort_key, partition_cohorts)
 from repro_torch.fed.server import (AGGREGATORS, SUM_MODES, ServerConfig,
@@ -32,10 +36,11 @@ __all__ = [
     "AGGREGATORS", "AdaptiveConfig", "BACKENDS", "ClientConfig",
     "ClientState", "FedConfig", "Federation", "NormEMA", "SUM_MODES",
     "ServerConfig", "ServerState", "TreeCodec", "aggregate",
-    "aggregate_stacked", "available", "budget", "codec_spec", "cohort_key",
-    "concat_stacks", "data_signature", "decode_deltas", "delta_norms",
-    "init_client_state", "init_server", "local_sgd", "make",
-    "make_client_round", "make_cohort_round", "partition_cohorts",
-    "registry", "stack_padded", "stack_trees", "stacked_norms", "tree_norm",
-    "unstack_tree",
+    "aggregate_stacked", "aggregate_stacked_mesh", "available", "budget",
+    "codec_spec", "cohort_key", "concat_stacks", "data_signature",
+    "decode_deltas", "default_mesh", "delta_norms", "init_client_state",
+    "init_server", "local_sgd", "make", "make_client_round",
+    "make_cohort_round", "make_mesh_cohort_round", "mesh_weighted_mean",
+    "partition_cohorts", "registry", "stack_padded", "stack_trees",
+    "stacked_norms", "tree_norm", "unstack_tree",
 ]

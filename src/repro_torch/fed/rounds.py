@@ -23,10 +23,18 @@ Where the reference's `device_get` moves a cohort's wires to the host for
 the ledger, the port copies them in one batch and synchronizes once
 (`_to_host`); decoded deltas stay on the device up to the params update.
 
-Differences from the reference: `backend="mesh"` (lanes sharded over
-devices, `repro.fed.mesh`) is not ported and raises; the port makes no
-`repro.obs` calls (no spans, counters or recompile registry); per-lane
-delta norms are computed only when adaptive re-allocation reads them.
+Backends (`Federation(backend=...)`): "vmap" runs every cohort's lanes in
+this process; "mesh" splits each cohort's lanes over the ranks of a
+`torch.distributed` group (`repro_torch.fed.mesh`). Every rank then runs
+the same Federation; a rank runs its block of each cohort's lanes, the
+per-lane ledger bytes and norms come back in one gather of a small vector
+per cohort, the new client states in one gather per state leaf, and the
+server reduce is a collective fold, bitwise "vmap" under
+`sum_mode="sequential"` (zero-weight padding lanes included).
+
+Differences from the reference: the port makes no `repro.obs` calls (no
+spans, counters or recompile registry); per-lane delta norms are computed
+on the vmap backend only when adaptive re-allocation reads them.
 A federation runs on `device` (`cuda` unless asked for the CPU): params,
 shards and PRNG lanes are moved there.
 """
@@ -44,6 +52,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.codecs import base as codec_base
 from repro_torch.fed import budget as budget_lib
 from repro_torch.fed import clients as clients_lib
+from repro_torch.fed import mesh as mesh_lib
 from repro_torch.fed import server as server_lib
 
 BACKENDS = ("vmap", "mesh")
@@ -113,7 +122,13 @@ class Federation:
     clients differentiate with autograd. `use_cohorts=False`
     forces the scalar path and the list-layout aggregate; `adaptive` +
     `codec_factory` (rate → TreeCodec) turn on adaptive re-allocation.
-    `backend` must be "vmap" (lanes of a cohort on the one device)."""
+
+    `backend` picks where cohort lanes run: "vmap" (default) all in this
+    process; "mesh" split over the ranks of `group` (the default group
+    when None, see `fed.mesh.default_mesh`), every rank running this same
+    Federation. Bitwise "vmap" under `sum_mode="sequential"`. Requires
+    `use_cohorts=True`; singletons and spec-less clients take the scalar
+    path on every rank, as under "vmap"."""
 
     def __init__(self, loss_fn: Callable, params, datas: Sequence,
                  codecs, client_cfgs=None,
@@ -121,17 +136,18 @@ class Federation:
                  use_cohorts: bool = True,
                  adaptive: Optional[budget_lib.AdaptiveConfig] = None,
                  codec_factory: Optional[Callable] = None,
-                 backend: str = "vmap", device=None):
+                 backend: str = "vmap", group=None, device=None):
         m = len(datas)
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {backend!r}")
-        if backend == "mesh":
-            raise NotImplementedError(
-                'backend="mesh" (cohort lanes sharded over devices, '
-                "repro.fed.mesh) is not ported yet: ROADMAP queue 1 item 5, "
-                "with dist/{sharding,zero}")
+        if backend == "mesh" and not use_cohorts:
+            raise ValueError('backend="mesh" places cohort lanes on ranks '
+                             "— it requires use_cohorts=True")
         self.backend = backend
+        self.group = ((group if group is not None
+                       else mesh_lib.default_mesh())
+                      if backend == "mesh" else None)
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         dev = self.device
@@ -173,6 +189,7 @@ class Federation:
         # per (spec, config) / cohort key and kept across re-allocations
         self._round_fns: dict = {}
         self._cohort_fns: dict = {}
+        self._mesh_fns: dict = {}
         self._audit_bits: dict = {}    # spec key -> analytic wire_bits
         self._stacked_data: dict = {}  # cohort key -> (members, stacked)
         self.rounds_done = 0
@@ -254,21 +271,33 @@ class Federation:
     def _run_clients(self, participants: Sequence[int],
                      round_idx: int) -> tuple:
         """Every participant through its cohort (lanes) or scalar round;
-        returns ({client_id: host wire}, [(members, stacked decoded deltas,
-        per-lane norms or None), ...]) and updates the states in place."""
-        wires_of: dict = {}
+        returns ({client_id: realized wire bytes}, [(members, stacked
+        decoded deltas, per-lane norms or None), ...]) and updates the
+        states in place. A mesh cohort's decoded deltas are this rank's
+        `mesh.LaneShard`."""
+        bytes_of: dict = {}
         groups: list = []
         parts = partition_cohorts(
             [(i, self._cohort_keys[i] if self.use_cohorts else None)
              for i in participants])
         for key, members in parts:
-            if key is not None and len(members) > 1:
+            if key is not None and len(members) > 1 and (
+                    self.backend == "mesh"):
+                lane_bytes, new_states, decoded, norms = (
+                    self._run_cohort_mesh(key, members, round_idx))
+                for lane, i in enumerate(members):
+                    bytes_of[i] = lane_bytes[lane]
+                    self.states[i] = codec_base.lane(new_states, lane)
+                groups.append((members, decoded,
+                               None if self._ema is None else norms))
+            elif key is not None and len(members) > 1:
                 wires, new_states, decoded = self._run_cohort(
                     key, members, round_idx)
                 # one copy of every lane's wire to the host for the ledger
                 h_wires = _to_host(wires)
                 for lane, i in enumerate(members):
-                    wires_of[i] = codec_base.lane(h_wires, lane)
+                    bytes_of[i] = self.codecs[i].wire_bytes(
+                        codec_base.lane(h_wires, lane), self.metas[i])
                     self.states[i] = codec_base.lane(new_states, lane)
                 groups.append((members, decoded, self._norms(decoded)))
             else:
@@ -279,9 +308,10 @@ class Federation:
                     decoded = tree_lib.map(
                         lambda x: x[None],
                         self.codecs[i].decode(wire, self.metas[i]))
-                    wires_of[i] = _to_host(wire)
+                    bytes_of[i] = self.codecs[i].wire_bytes(
+                        _to_host(wire), self.metas[i])
                     groups.append(([i], decoded, self._norms(decoded)))
-        return wires_of, groups
+        return bytes_of, groups
 
     def _run_cohort(self, key, members: Sequence[int], round_idx: int):
         """One cohort as lanes: the client round, then the server's decode
@@ -308,6 +338,47 @@ class Federation:
                                           self.metas[i0], len(members))
         return wires, new_states, decoded
 
+    def _run_cohort_mesh(self, key, members: Sequence[int], round_idx: int):
+        """One cohort with its lanes split over the ranks: the stacked data
+        and states are padded by repeating lane 0 (`clients.stack_padded`),
+        this rank runs its block. Returns the real lanes' ledger bytes, new
+        states and norms (gathered: every rank holds every client's state)
+        and the decoded deltas as this rank's `mesh.LaneShard`."""
+        n, i0 = len(members), members[0]
+        total = mesh_lib.padded_lanes(n, mesh_lib.lane_axis_size(self.group))
+        fn = self._mesh_fns.get(key)
+        if fn is None:
+            fn = mesh_lib.make_mesh_cohort_round(
+                self.loss_fn, self.codecs[i0], self.client_cfgs[i0],
+                self.server.params, self.group)
+            self._mesh_fns[key] = fn
+        mtuple = (tuple(members), total)
+        cached = self._stacked_data.get(key)
+        if cached is not None and cached[0] == mtuple:
+            data = cached[1]
+        else:
+            data = clients_lib.stack_padded(
+                [self.datas[i] for i in members], total)
+            self._stacked_data[key] = (mtuple, data)
+        state = clients_lib.stack_padded(
+            [self.states[i] for i in members], total)
+        wires, new_states, decoded, norms = fn(self.server.params, data,
+                                               state, round_idx)
+        # this rank's lanes' ledger bytes and norms: one small gather
+        h_wires = _to_host(wires)
+        lane_bytes = torch.tensor(
+            [self.codecs[i0].wire_bytes(codec_base.lane(h_wires, lane),
+                                        self.metas[i0])
+             for lane in range(norms.shape[0])], dtype=torch.float64)
+        small = mesh_lib.gather_lanes(
+            torch.stack([lane_bytes.to(norms.device),
+                         norms.to(torch.float64)], dim=1), total, self.group)
+        states = tree_lib.map(lambda a: a[:n], mesh_lib.gather_lanes(
+            new_states, total, self.group))
+        return (small[:n, 0].tolist(), states,
+                mesh_lib.LaneShard(decoded, total),
+                small[:n, 1].to(torch.float32))
+
     @staticmethod
     def _combine_groups(groups: Sequence, participants: Sequence[int]):
         """Join per-cohort stacks into ONE stacked tree in participant order
@@ -326,10 +397,10 @@ class Federation:
     def run_round(self, cfg: FedConfig, round_idx: int) -> dict:
         realloc = self._maybe_reallocate(round_idx)
         participants, stragglers = self.sample_participants(cfg, round_idx)
-        wires_of, groups = self._run_clients(participants, round_idx)
+        bytes_of, groups = self._run_clients(participants, round_idx)
         realized = analytic = 0.0
         for i in participants:
-            realized += self.codecs[i].wire_bytes(wires_of[i], self.metas[i])
+            realized += bytes_of[i]
             analytic += self._analytic_bits[i] / 8.0
         if participants:
             weights = self._weights(cfg, participants)
@@ -345,15 +416,42 @@ class Federation:
 
     def _aggregate(self, groups, participants, weights,
                    slot_weights) -> None:
-        if self.use_cohorts:
+        if (self.backend == "mesh" and len(groups) == 1
+                and groups[0][0] == list(participants)):
+            # single-cohort fast path: the rank's block of the decoded
+            # stack feeds the collective fold directly
+            members, decoded, norms = groups[0]
+            if self._ema is not None:
+                self._ema.update(members, norms.cpu().to(torch.float64)
+                                 .numpy())
+            self.server = mesh_lib.aggregate_stacked_mesh(
+                self.server, self.server_cfg, decoded, weights, self.group,
+                participants, slot_weights=slot_weights,
+                lanes=len(participants))
+        elif self.use_cohorts:
+            if self.backend == "mesh":
+                # multi-group join: every mesh cohort's lanes gathered and
+                # cut to the real ones before the concat
+                groups = [(mem, mesh_lib.gather_lanes(
+                    dec.local, dec.total, self.group) if isinstance(
+                        dec, mesh_lib.LaneShard) else dec, nr)
+                    for mem, dec, nr in groups]
+                groups = [(mem, tree_lib.map(lambda a, k=len(mem): a[:k],
+                                             dec), nr)
+                          for mem, dec, nr in groups]
             stacked, order, norms = self._combine_groups(groups,
                                                          participants)
             if self._ema is not None:
                 self._ema.update(order, norms.cpu().to(torch.float64)
                                  .numpy())
-            self.server = server_lib.aggregate_stacked(
-                self.server, self.server_cfg, stacked, weights,
-                participants, slot_weights=slot_weights)
+            if self.backend == "mesh":
+                self.server = mesh_lib.aggregate_stacked_mesh(
+                    self.server, self.server_cfg, stacked, weights,
+                    self.group, participants, slot_weights=slot_weights)
+            else:
+                self.server = server_lib.aggregate_stacked(
+                    self.server, self.server_cfg, stacked, weights,
+                    participants, slot_weights=slot_weights)
         else:
             # the list layout: per-participant trees, reduced left to right
             deltas = [tree_lib.map(lambda x: x[0], g[1]) for g in groups]

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.dist.sharding import fold, fold_mean
 from repro_torch.optimizer.optim import Optimizer, apply_updates
 
 AGGREGATORS = ("fedavg", "fedopt", "fedmem")
@@ -170,15 +171,6 @@ def _fedopt_tail(state: ServerState, cfg: ServerConfig, mean) -> ServerState:
                        opt_state, state.memory)
 
 
-def _fold(y: torch.Tensor) -> torch.Tensor:
-    """y[0] + y[1] + ... + y[-1], added left to right: elementwise adds in
-    a fixed order, so every device gives the same bits."""
-    acc = y[0]
-    for i in range(1, y.shape[0]):
-        acc = acc + y[i]
-    return acc
-
-
 def _memory_step(memory, stacked, participant_ids, slot_weights):
     """fedmem: scatter the participants' deltas into their slots, then
     reduce ALL slots to the step direction, folded left to right (a
@@ -196,13 +188,12 @@ def _memory_step(memory, stacked, participant_ids, slot_weights):
 
     memory = tree_lib.map(scatter, memory, stacked)
     if slot_weights is None:
-        direction = tree_lib.map(lambda m: _fold(m) / torch.tensor(
-            float(m.shape[0]), dtype=torch.float32, device=dev), memory)
+        direction = tree_lib.map(fold_mean, memory)
     else:
         _check_weights(slot_weights, "slot_weights")
         sw = _normalized(slot_weights, dev)
         direction = tree_lib.map(
-            lambda m: _fold(_lane_weights(sw, m) * m), memory)
+            lambda m: fold(_lane_weights(sw, m) * m), memory)
     return memory, direction
 
 
@@ -243,7 +234,7 @@ def _sequential_weighted_sum(stacked, w):
     the weighted lanes are materialized first, then the fold is pure
     adds."""
     return tree_lib.map(
-        lambda x: _fold(_lane_weights(w, x) * x.to(torch.float32)), stacked)
+        lambda x: fold(_lane_weights(w, x) * x.to(torch.float32)), stacked)
 
 
 def _pairwise_weighted_sum(stacked, w):

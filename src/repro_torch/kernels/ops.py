@@ -67,8 +67,13 @@ def rotate(chunks: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
 
 
 def unrotate(x: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
-    """Inverse of `rotate` (H orthonormal, D its own inverse): D·(H·x)."""
-    return fwht(x) * signs
+    """Inverse of `rotate` (H orthonormal, D its own inverse): D·(H·x).
+    The sign multiply runs in place on the transform's fresh output, which
+    saves a stacked decode's largest temporary."""
+    y = fwht(x)
+    if y.dtype != torch.promote_types(y.dtype, signs.dtype):
+        return y * signs
+    return y.mul_(signs)
 
 
 def quantize_pack(x: torch.Tensor, scale: torch.Tensor,

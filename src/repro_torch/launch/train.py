@@ -6,6 +6,9 @@
 
 Without a GPU, the default `--device cuda` raises rather than running on
 the CPU. Checkpointing (`--ckpt-dir` in the reference) is not ported yet.
+Over m workers, every rank calls `train(..., group=group)` with the same
+arguments (`repro_torch.launch.mesh`): each takes its rows of the global
+batch.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch import tree as tree_lib
 from repro_torch.data.pipeline import batch_for_shape
+from repro_torch.dist import sharding
 from repro_torch.dist import step as step_lib
 from repro_torch.dist.gradcomp import GradCompConfig, wire_bytes_tree
 from repro_torch.models.model import disable_tf32
@@ -30,25 +34,27 @@ def _sync(device: torch.device) -> None:
 
 def train(cfg, *, steps: int, batch_size: int, seq_len: int,
           gc: GradCompConfig, lr: float = 3e-4, log_every: int = 10,
-          seed: int = 0, device=None, on_step=None):
+          seed: int = 0, device=None, on_step=None, group=None):
     """Train `steps` steps from seeded random weights on `device` (cuda by
-    default). Returns (params, losses, step_seconds); `on_step(step,
-    metrics)` is called after each step, once the device has finished it."""
+    default), over the workers of `group` (None: one). Returns (params,
+    losses, step_seconds); `on_step(step, metrics)` is called after each
+    step, once the device has finished it."""
     device = resolve_device(device)
     disable_tf32()
     opt = adamw(warmup_cosine(lr, max(steps // 20, 1), steps),
                 weight_decay=0.1)
-    tstep = step_lib.make_train_step(cfg, opt, gc, clip_norm=1.0)
+    tstep = step_lib.make_train_step(cfg, opt, gc, group, clip_norm=1.0)
     params, opt_state, ef = step_lib.init_train_state(
-        cfg, opt, gc, seed=seed, device=device)
+        cfg, opt, gc, group, seed=seed, device=device)
+    m = sharding.num_workers(group)
 
     n_params = sum(x.numel() for x in tree_lib.leaves(params))
     print(f"model={cfg.name} layers={cfg.num_layers} "
-          f"params={n_params/1e6:.1f}M workers=1 strategy={gc.strategy} "
+          f"params={n_params/1e6:.1f}M workers={m} strategy={gc.strategy} "
           f"R={gc.effective_bits if gc.compresses else 32} bits/dim "
           f"device={device}")
     if gc.compresses:
-        audit = wire_bytes_tree(params, gc, 1)
+        audit = wire_bytes_tree(params, gc, m)
         print(f"wire audit: f32={audit['f32_bytes']/2**20:.1f}MiB → "
               f"payload={audit['payload_bytes']/2**20:.1f}MiB "
               f"({audit['compression_x']:.1f}× smaller)")

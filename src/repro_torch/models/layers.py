@@ -25,7 +25,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    return torch.nn.functional.embedding(tokens, table)
 
 
 # ---------------------------------------------------------------------------

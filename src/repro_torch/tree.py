@@ -19,23 +19,29 @@ def _is_namedtuple(t) -> bool:
 def flatten(tree, is_leaf=None) -> tuple:
     """Returns (leaves, spec); `unflatten(spec, leaves)` rebuilds the tree."""
     leaves: list = []
+    return leaves, _walk(tree, leaves, is_leaf)
 
-    def walk(t):
-        if is_leaf is not None and is_leaf(t):
-            leaves.append(t)
-            return _LEAF
-        if t is None:
-            return ("none",)
-        if isinstance(t, dict):
-            return ("dict", tuple((k, walk(t[k])) for k in sorted(t)))
-        if _is_namedtuple(t):
-            return ("namedtuple", type(t), tuple(walk(v) for v in t))
-        if isinstance(t, (list, tuple)):
-            return (type(t).__name__, tuple(walk(v) for v in t))
+
+def _walk(t, leaves: list, is_leaf):
+    # a module-level function, not a closure over `leaves`: a recursive
+    # closure refers to itself through its cell, and that cycle would keep
+    # the leaves (tensors) alive until the cyclic collector runs
+    if is_leaf is not None and is_leaf(t):
         leaves.append(t)
         return _LEAF
-
-    return leaves, walk(tree)
+    if t is None:
+        return ("none",)
+    if isinstance(t, dict):
+        return ("dict", tuple((k, _walk(t[k], leaves, is_leaf))
+                              for k in sorted(t)))
+    if _is_namedtuple(t):
+        return ("namedtuple", type(t),
+                tuple(_walk(v, leaves, is_leaf) for v in t))
+    if isinstance(t, (list, tuple)):
+        return (type(t).__name__,
+                tuple(_walk(v, leaves, is_leaf) for v in t))
+    leaves.append(t)
+    return _LEAF
 
 
 def _build(spec, take):
@@ -67,30 +73,30 @@ def flatten_up_to(spec, tree) -> list:
     those positions, and whatever sits there (a payload dict, say) comes
     back whole."""
     out: list = []
-
-    def walk(s, t):
-        if s is _LEAF:
-            out.append(t)
-            return
-        kind = s[0]
-        if kind == "none":
-            if t is not None:
-                raise ValueError(f"expected None, got {type(t).__name__}")
-            return
-        if kind == "dict":
-            if not isinstance(t, dict) or sorted(t) != [k for k, _ in s[1]]:
-                raise ValueError("tree does not match the spec's dict keys")
-            for k, c in s[1]:
-                walk(c, t[k])
-            return
-        children = s[2] if kind == "namedtuple" else s[1]
-        if not isinstance(t, (list, tuple)) or len(t) != len(children):
-            raise ValueError("tree does not match the spec's sequence")
-        for c, v in zip(children, t):
-            walk(c, v)
-
-    walk(spec, tree)
+    _walk_up_to(spec, tree, out)
     return out
+
+
+def _walk_up_to(s, t, out: list) -> None:
+    if s is _LEAF:
+        out.append(t)
+        return
+    kind = s[0]
+    if kind == "none":
+        if t is not None:
+            raise ValueError(f"expected None, got {type(t).__name__}")
+        return
+    if kind == "dict":
+        if not isinstance(t, dict) or sorted(t) != [k for k, _ in s[1]]:
+            raise ValueError("tree does not match the spec's dict keys")
+        for k, c in s[1]:
+            _walk_up_to(c, t[k], out)
+        return
+    children = s[2] if kind == "namedtuple" else s[1]
+    if not isinstance(t, (list, tuple)) or len(t) != len(children):
+        raise ValueError("tree does not match the spec's sequence")
+    for c, v in zip(children, t):
+        _walk_up_to(c, v, out)
 
 
 def leaves(tree, is_leaf=None) -> list:

@@ -13,7 +13,10 @@ decode attention within rtol = atol = 2e-4, the bound the JAX package
 holds its Pallas kernel to (exponentials and sums run in another
 order). The codecs' paths (RATQ's rung, `ops.rotate`, lane-stacked
 encode / encode_ef / decode, sparsify-then-embed's ties) are held bitwise
-card against CPU or against the per-lane calls."""
+card against CPU or against the per-lane calls. Two gloo ranks sharing the
+card (this file run as a script is one rank) hold ZeRO-1 against the
+all-gather consensus and the mesh federation against the vmap backend,
+bitwise."""
 import pytest
 import torch
 
@@ -262,3 +265,98 @@ def test_cuda_sparsify_then_embed_matches_cpu(cuda, mode):
     _same(host, card)
     meta = c.meta({"x": x})
     _same(c.decode(host, meta), c.decode(card, meta))
+
+
+# ---------------------------------------------------------------------------
+# Two gloo ranks sharing the card (repro_torch.dist, repro_torch.fed.mesh)
+# ---------------------------------------------------------------------------
+def _rank_two_workers(rank: int, world: int, init: str, out_dir: str):
+    """One rank of `test_cuda_two_ranks_share_the_card` (this file run as a
+    script): ZeRO-1 against all-gather after one step, and a mesh
+    federation against the vmap backend, on the card."""
+    import os
+    import numpy as np
+    from repro_torch import codecs, fed
+    from repro_torch import tree as tree_lib
+    from repro_torch.dist import gradcomp as G
+    from repro_torch.dist import sharding, step, zero
+    from repro_torch.launch import mesh
+    from repro_torch.models import model
+    from repro_torch.optimizer import optim
+
+    torch.set_num_threads(1)
+    group, dev = mesh.init_workers(rank, world, init, device="cuda")
+    out = {"backend": torch.distributed.get_backend(group)}
+    cfg = model.ModelConfig(name="tiny", num_layers=1, d_model=36,
+                            num_heads=2, num_kv_heads=1, d_ff=70,
+                            vocab_size=50, vocab_pad_multiple=16)
+
+    def loss(p, b):
+        return sum(torch.sum(x * y[0]) for x, y in zip(tree_lib.leaves(p),
+                                                       tree_lib.leaves(b)))
+
+    g = torch.Generator().manual_seed(5)
+    batch = tree_lib.map(lambda x: torch.randn((world,) + tuple(x.shape),
+                                               generator=g).to(dev),
+                         model.init_params(0, cfg, "cpu"))
+    opt = optim.sgd(1.0)
+    gc = G.GradCompConfig(bits=4, chunk=64)
+    st = step.init_train_state(cfg, opt, gc, group, seed=0, device=dev)
+    params = step.make_train_step(cfg, opt, gc, group, loss_fn=loss)(
+        *st, batch)[0]
+    gz = G.GradCompConfig(bits=4, chunk=64, strategy="alltoall_zero1")
+    zs = step.init_zero_state(cfg, opt, gz, group, seed=0, device=dev)
+    owned = step.make_zero_train_step(cfg, opt, gz, group, loss_fn=loss)(
+        *zs, batch)[0]
+    same = True
+    for p, o in zip(tree_lib.leaves(params), tree_lib.leaves(owned)):
+        full = sharding.all_gather_stack(o, group).reshape(-1, gc.chunk)
+        same &= torch.equal(zero.from_owned(full, p.numel(), p.shape,
+                                            p.dtype), p)
+    out["zero_eq_allgather"] = same
+
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((5, 32, 48)).astype(np.float32)
+    shards = [{"a": torch.from_numpy(a[i]),
+               "b": torch.from_numpy(a[i].sum(1))} for i in range(5)]
+    cs = ([codecs.make("ndsc", 2.0, chunk=32)] * 3
+          + [codecs.make("ndsc", 0.5, chunk=32)] * 2)
+    runs = []
+    for backend in ("vmap", "mesh"):
+        f = fed.Federation(
+            lambda p, b: 0.5 * torch.mean((b["a"] @ p["x"] - b["b"]) ** 2),
+            {"x": torch.zeros(48)}, shards, cs, fed.ClientConfig(lr=0.1),
+            seed=1, backend=backend,
+            group=group if backend == "mesh" else None, device=dev)
+        runs.append((f, f.run(fed.FedConfig(num_rounds=3))))
+    (fv, hv), (fm, hm) = runs
+    out["mesh_eq_vmap"] = hv == hm and all(
+        torch.equal(x, y) for x, y in zip(
+            tree_lib.leaves((fv.server, fv.states)),
+            tree_lib.leaves((fm.server, fm.states))))
+    torch.distributed.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_share_the_card(cuda, tmp_path):
+    """Two ranks on one card take gloo (NCCL cannot put two ranks of one
+    communicator on a card): ZeRO-1 equals all-gather after one step, and
+    the mesh federation equals the vmap backend, bitwise."""
+    import numpy as np
+    from repro_torch.launch import mesh
+    res = mesh.run_local_ranks(
+        lambda r, init: [__file__, str(r), "2", init, str(tmp_path)], 2,
+        300.0)
+    for r, (rc, _, err) in enumerate(res):
+        assert rc == 0, f"rank {r}:\n{err[-3000:]}"
+    for r in range(2):
+        f = np.load(tmp_path / f"rank{r}.npz")
+        assert str(f["backend"]) == "gloo"
+        assert bool(f["zero_eq_allgather"]) and bool(f["mesh_eq_vmap"])
+
+
+if __name__ == "__main__":
+    import sys
+    _rank_two_workers(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                      sys.argv[4])

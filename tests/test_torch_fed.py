@@ -306,15 +306,13 @@ def test_backends_and_api():
     shards, lr, _ = _problem(m=2, dim=8, per_client=4)
     datas = [tree_lib.map(torch.from_numpy, s) for s in shards]
     codec = tcodecs.make("ndsc", 2.0, chunk=32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(ValueError, match="use_cohorts"):
         tfed.Federation(_tloss, {"x": torch.zeros(8)}, datas, codec,
-                        backend="mesh", device="cpu")
+                        backend="mesh", use_cohorts=False, device="cpu")
     with pytest.raises(ValueError, match="backend must be one of"):
         tfed.Federation(_tloss, {"x": torch.zeros(8)}, datas, codec,
                         backend="pmap", device="cpu")
-    assert set(tfed.__all__) == set(jfed.__all__) - {
-        "aggregate_stacked_mesh", "default_mesh", "make_mesh_cohort_round",
-        "mesh_weighted_mean"}
+    assert set(tfed.__all__) == set(jfed.__all__)
     with pytest.warns(DeprecationWarning, match="repro_torch.codecs"):
         tfed.registry.make("ndsc", 1.0)
     assert tfed.partition_cohorts([(0, "a"), (1, None), (2, "a"),

@@ -196,10 +196,14 @@ def test_train_refuses_cpu_fallback():
 
 
 def test_more_workers_raise(setup):
-    _, tcfg, _ = setup
-    opt = TO.sgd(0.1)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        TS.make_train_step(tcfg, opt, TG.GradCompConfig(), num_workers=2)
+    """More workers need torch.distributed initialized in each rank (the
+    multi-worker step itself: tests/test_torch_dist.py); a model axis > 1
+    is not ported."""
+    from repro_torch.launch import mesh as TMESH
+    with pytest.raises(RuntimeError, match="torch.distributed"):
+        TMESH.make_host_group(data=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TMESH.make_host_group(data=1, model=2)
 
 
 def test_token_stream_deterministic():
