@@ -24,8 +24,9 @@ prints its seconds):
         × C {1, 100, 512, 1000, 4096, 4097} × G {1, 8} with kv_len {0, 1,
         C, ragged} (so one split, several, a ragged last one and splits
         wholly past kv_len) and packed words over the whole int32 range,
-        and at the (dh, G) the shared-memory tile kernel takes (16, 8),
-        (128, 12), (512, 2) × C {1, 100, 1000};
+        at the served families' (dh, G) (64, 5) (hymba) and (128, 6)
+        (mixtral) × the same C, and at the (dh, G) the shared-memory tile
+        kernel takes (16, 8), (128, 12), (512, 2) × C {1, 100, 1000};
      c. at the shapes the training run gives the codec kernels: check,
         time kernel, plain version and (for the FWHT) a dense x @ H matmul,
         and beside unpack_dequant `zero_()` of its outputs ("zero_ms": the
@@ -129,6 +130,27 @@ prints its seconds):
      each rank, pairwise's gap and rounds per second; fed_heterogeneous
      (phase 10b's runs) under the mesh backend: ledger and participants
      equal to the vmap backend's;
+ 13. the other block families (models/{moe,ssm,xlstm}), after phase 11:
+     a. mixtral-8x22b at full width (d_model 6144, 48/8 heads, 8 experts
+     top-2, d_ff 16384, vocab 32768, window 4096) cut to 4 of its 56
+     layers (10,418,903,040 values), served through the 8-bit cache with
+     phase 7's traffic and checks (launches per decode step 4, 8, 12; per
+     prefill 8 and 8), with its weight-read floor; b. the same cut to 1
+     layer (2,906,720,256 values, 13 leaves) trained 2 steps of
+     allgather_packed with EF (R 4, chunk 256, batch 8, seq 128) with SGD
+     and no clip (AdamW's functional update does not fit the card at this
+     size): 13 launches of encode_ef, unpack_dequant and fwht per step,
+     finite loss and params, and the e_gate leaf's words, scales and EF
+     residual on rows across and past 2^31 bytes into the leaf bitwise its
+     CPU encode; c. hymba-1.5b at full width and all 32 layers through
+     the 8-bit cache, 4 cold 32-token prompts (its prefill steps decode),
+     launches per decode step 32, 64, 96, the prefix contract bitwise; d.
+     the reduced mixtral, arctic, hymba and xlstm on the card and on the
+     CPU from the same weights: 2 train steps within phase 6's bounds,
+     served past the window of 64 (logits within SMALL_LOGIT_TOL, greedy
+     tokens equal), and two card runs of the MoE forward and backward
+     bitwise; e. xlstm-350m at full width and all 24 layers, 2 steps of
+     launch.train.train (15 launches per kernel per step);
  12. print {"kernels": [...]} and, last, the device line.
 
 Without CUDA it exits non-zero before printing any result. Nothing here
@@ -270,6 +292,11 @@ def check_serve_kernels(dev) -> tuple:
                     err = max(err, checks.check_quant_decode_attention(
                         bits, dh, c, g, dev))
                     n_cfg += 1
+        for dh, g in checks.ATTN_FAMILY_SHAPES:
+            for c in checks.ATTN_C:
+                err = max(err, checks.check_quant_decode_attention(
+                    bits, dh, c, g, dev))
+                n_cfg += 1
         for dh, g in checks.ATTN_TILE_SHAPES:
             for c in checks.ATTN_TILE_C if dh * bits % 32 == 0 else ():
                 err = max(err, checks.check_quant_decode_attention(
@@ -363,10 +390,32 @@ def time_serve_kernels(ops, ref, dev) -> dict:
     return out
 
 
+# phase 7's traffic: one 64-token prefix, 8 requests (4 with the prefix and
+# a 16-token suffix, 4 cold 80-token prompts), 16 new tokens each
+PHASE7_TRAFFIC = {"prefix": PREFIX_LEN,
+                  "requests": [(SUFFIX_LEN, True) if rid % 2 == 0
+                               else (COLD_LEN, False) for rid in range(8)],
+                  "profile_len": COLD_LEN}
+
+
 def serve_phase(dev) -> tuple:
-    """The serving main path at full width and depth; returns (launch
-    counts of the run, its numbers)."""
+    """Phase 7, the serving main path at full width and depth: yi-6b, 32
+    layers, the 8-bit cache; returns (launch counts of the run, its
+    numbers)."""
     from repro_torch import configs
+    cfg = dataclasses.replace(configs.get("yi-6b"), kv_quant_bits=SERVE_BITS)
+    return serve_run(dev, cfg, "serve x32", PHASE7_TRAFFIC)
+
+
+def serve_run(dev, cfg, label: str, traffic: dict) -> tuple:
+    """Serve `cfg` (random weights, seed 0) through an Engine of
+    SERVE_SLOTS slots and SERVE_MAX_SEQ positions with `traffic` ({"prefix":
+    its length or 0, "requests": [(prompt length, uses the prefix)],
+    "profile_len": the prompts of the profiled step}), SERVE_NEW tokens
+    each, launches counted around every public call; then one profiled
+    decode step, the serve step's logits and the prefix contract (8-bit
+    and f32 caches), bitwise on the card. Returns (launch counts of the
+    run, its numbers)."""
     from repro_torch import tree as tree_lib
     from repro_torch.dist.step import make_serve_step
     from repro_torch.kernels import ops
@@ -375,19 +424,24 @@ def serve_phase(dev) -> tuple:
     from repro_torch.serve import (Engine, Request, ServeConfig,
                                    verify_prefix_contract)
 
-    cfg = dataclasses.replace(configs.get("yi-6b"), kv_quant_bits=SERVE_BITS)
     t0 = time.perf_counter()
     params = model_lib.init_params(0, cfg, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(x.numel() for x in tree_lib.leaves(params))
-    log(f"[serve] yi-6b {cfg.num_layers} layers, {n_params} params "
+    log(f"[{label}] {cfg.name} {cfg.num_layers} layers, {n_params} params "
         f"({n_params * 4 / 1e9:.2f} GB f32) made in {init_s:.2f}s")
 
     nl = cfg.num_scanned
     per_token = {"quant_decode_attention": nl, "quantize_pack": 2 * nl,
                  "fwht": 3 * nl}
-    per_prefill = {"quantize_pack": 2 * nl, "fwht": 2 * nl}
+    # the attention families prefill in one blockwise pass (K and V of
+    # each layer encoded once); the recurrent ones step decode per token
+    stepped = cfg.block not in ("attn_mlp", "attn_moe", "attn_moe_dense")
+
+    def per_prefill(n):
+        return ((per_token, n) if stepped
+                else ({"quantize_pack": 2 * nl, "fwht": 2 * nl}, 1))
 
     def plus(*terms):
         """Sum of (launches dict, times) terms."""
@@ -419,7 +473,7 @@ def serve_phase(dev) -> tuple:
         suffix one token at a time; a prefix miss does both."""
         terms = []
         if req.admission in ("cold", "prefix_cold"):
-            terms.append((per_prefill, 1))
+            terms.append(per_prefill(len(req.prompt)))
         if req.admission in ("prefix_hit", "prefix_cold"):
             terms.append((per_token, len(req.prompt)))
         return terms
@@ -433,19 +487,21 @@ def serve_phase(dev) -> tuple:
         return torch.randint(0, cfg.vocab_size, (n,), generator=gen,
                              dtype=torch.int32).numpy()
 
-    prefix = tokens(PREFIX_LEN)
-    prompts = [(tokens(SUFFIX_LEN), "sys") if rid % 2 == 0
-               else (tokens(COLD_LEN), None) for rid in range(8)]
+    prefix = tokens(traffic["prefix"] or SUFFIX_LEN)
+    prompts = [(tokens(n), "sys" if hit else None)
+               for n, hit in traffic["requests"]]
     reqs = [Request(rid=rid, prompt=prompt, max_new_tokens=SERVE_NEW,
                     prefix_id=pid) for rid, (prompt, pid) in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    prefix_prefill_s = counted(
-        "register_prefix",
-        lambda: eng.register_prefix("sys", prefix, prefill=True),
-        lambda: per_prefill)
+    prefix_prefill_s = None
+    if traffic["prefix"]:
+        prefix_prefill_s = counted(
+            "register_prefix",
+            lambda: eng.register_prefix("sys", prefix, prefill=True),
+            lambda: plus(per_prefill(len(prefix))))
     for req in reqs:
         eng.submit(req)
     steps = []                  # (seconds, admission kinds of the step)
@@ -471,29 +527,38 @@ def serve_phase(dev) -> tuple:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finished = eng.finished
 
-    if len(finished) != 8 or any(len(r.tokens_out) != SERVE_NEW
-                                 for r in finished):
+    if len(finished) != len(reqs) or any(len(r.tokens_out) != SERVE_NEW
+                                         for r in finished):
         raise AssertionError("not every request finished with "
                              f"{SERVE_NEW} tokens")
     kinds = sorted(r.admission for r in finished)
-    if kinds != ["cold"] * 4 + ["prefix_hit"] * 4:
-        raise AssertionError(f"admissions {kinds}")
+    want_kinds = sorted("prefix_hit" if hit else "cold"
+                        for _, hit in traffic["requests"])
+    if kinds != want_kinds:
+        raise AssertionError(f"admissions {kinds}, want {want_kinds}")
     for name in ("quant_decode_attention", "quantize_pack", "fwht"):
         if counts[name] == 0:
             raise AssertionError(f"{name} never launched on the serve path")
-    for name in ("k_scale", "v_scale"):
-        if not bool(torch.isfinite(eng.state.caches[name]).all()):
-            raise AssertionError(f"non-finite {name} in the KV cache")
+    for name, x in eng.state.caches.items():
+        if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"non-finite {name} in the decode state")
     decode_s = [dt for dt, admitted in steps if not admitted]
     ttft = {k: statistics.median(r.ttft_s for r in finished
                                  if r.admission == k)
-            for k in ("cold", "prefix_hit")}
+            for k in sorted(set(kinds))}
     positional = [x for name, x in eng.state.caches.items()
                   if name in decode_lib.POSITIONAL_CACHE_KEYS
                   and name.endswith("words")]
     cache_bytes = decode_lib.state_bytes(eng.state)
-    f32_bytes = (2 * nl * SERVE_SLOTS * SERVE_MAX_SEQ * cfg.num_kv_heads
-                 * cfg.dh * 4 + eng.state.pos.numel() * 4)
+    # the same state with an f32 KV cache: 32/bits values of 4 bytes per
+    # word, no scales; the recurrent leaves as they are
+    f32_bytes = eng.state.pos.numel() * 4
+    for name, x in eng.state.caches.items():
+        if name.endswith("words"):
+            f32_bytes += x.numel() * (32 // SERVE_BITS) * 4
+        elif name not in decode_lib.SHARED_CACHE_KEYS and \
+                not name.endswith("scale"):
+            f32_bytes += x.numel() * x.element_size()
     n_tokens = sum(len(r.tokens_out) for r in finished)
     numbers = {
         "layers": nl, "params": n_params, "init_s": init_s,
@@ -507,12 +572,13 @@ def serve_phase(dev) -> tuple:
         "ttft_s_median": ttft, "peak_mem_GB": peak_gb,
         "cache_bytes": cache_bytes, "cache_bytes_if_f32": f32_bytes,
         "words_shape": list(positional[0].shape), "launches": counts}
-    log(f"[serve x32] {json.dumps(numbers)}")
+    log(f"[{label}] {json.dumps(numbers)}")
 
     # one decode step of 4 busy slots under the profiler: the device's busy
     # time (its kernels and copies) against the unprofiled median step
     for rid in range(SERVE_SLOTS):
-        eng.submit(Request(rid=100 + rid, prompt=tokens(COLD_LEN),
+        eng.submit(Request(rid=100 + rid,
+                           prompt=tokens(traffic["profile_len"]),
                            max_new_tokens=4))
     eng.step()                                   # admissions + one decode
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -536,7 +602,7 @@ def serve_phase(dev) -> tuple:
         "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                 for e in sorted(kern, key=lambda e: -e.self_device_time_total)
                 [:8]]}
-    log(f"[serve x32] profiled decode step: "
+    log(f"[{label}] profiled decode step: "
         f"{json.dumps(numbers['profiled_step'])}")
     # the serve step the launcher uses, pinned to the card, on the engine's
     # final state: its logits must be finite
@@ -555,12 +621,58 @@ def serve_phase(dev) -> tuple:
                                        max_seq=SERVE_MAX_SEQ),
             prefix, prompts[0][0], device=dev)
         contract[f"kv{bits or 32}"] = {**ev, "s": time.perf_counter() - t}
-    log(f"[serve x32] prefix contract bitwise (hit == cold) on the card, "
+    log(f"[{label}] prefix contract bitwise (hit == cold) on the card, "
         f"{cfg.num_layers} layers: {json.dumps(contract)}")
     numbers["prefix_contract"] = contract
     del params
     torch.cuda.empty_cache()
     return counts, numbers
+
+
+def train_card_vs_cpu(dev, small, gc, label: str) -> list:
+    """Two AdamW steps (clip 1) of the reduced `small` on the CPU and on the
+    card from the same weights and tokens: the losses within 1e-4
+    relative, the params within 3 lr per step at the maximum and 1e-6 at
+    the median (f32 sums differ in order between CPU and card; a coordinate
+    whose code lands in the next bin moves Adam's step by up to ~2 lr).
+    Returns each step's (loss cpu, loss card, max and median |dparam|)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.dist import step as step_lib
+    from repro_torch.optimizer import optim
+
+    lr = 3e-4
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    states, step_fns = {}, {}
+    for d, device in devices.items():
+        opt = optim.adamw(optim.warmup_cosine(lr, 1, 10), weight_decay=0.1)
+        step_fns[d] = step_lib.make_train_step(small, opt, gc, clip_norm=1.0)
+        p, o, e = step_lib.init_train_state(small, opt, gc, seed=0,
+                                           device="cpu")
+        states[d] = tuple(tree_lib.map(lambda x: x.to(device), s)
+                          for s in (p, o, e))
+    tg = torch.Generator()
+    tg.manual_seed(4)
+    out = []
+    for s in range(2):
+        toks = torch.randint(0, small.vocab_size, (2, 17), generator=tg,
+                             dtype=torch.int32)
+        loss = {}
+        for d, device in devices.items():
+            *states[d], m = step_fns[d](*states[d],
+                                        {"tokens": toks.to(device)})
+            loss[d] = float(m["loss"])
+        diffs = torch.cat([(a - b.cpu()).abs().flatten() for a, b in zip(
+            tree_lib.leaves(states["cpu"][0]),
+            tree_lib.leaves(states["cuda"][0]))])
+        mx, med = float(diffs.max()), float(diffs.median())
+        log(f"[{label}] step {s}: loss cpu {loss['cpu']} cuda "
+            f"{loss['cuda']} max|dparam| {mx:.3g} median {med:.3g}")
+        if not (abs(loss["cpu"] - loss["cuda"]) <= 1e-4 * abs(loss["cpu"])
+                and mx <= 3 * lr * (s + 1) and med <= 1e-6):
+            raise AssertionError(f"{label}: card and CPU disagree on the "
+                                 "small input")
+        out.append((loss["cpu"], loss["cuda"], mx, med))
+    return out
 
 
 def small_serve_phase(dev) -> dict:
@@ -632,6 +744,252 @@ def small_serve_phase(dev) -> dict:
     if not (err <= SMALL_LOGIT_TOL and same_tokens and max_bin <= 1
             and engine_cpu == engine_cuda):
         raise AssertionError("card and CPU disagree on the small serve run")
+    return out
+
+
+# -- phase 13: the other block families (models/{moe,ssm,xlstm}) -----------
+# a. mixtral-8x22b at full width cut to 4 of its 56 layers, served with
+#    phase 7's traffic; b. cut to 1 layer, trained; c. hymba-1.5b at full
+#    width and depth, served; d. four reduced configs, card against CPU;
+#    e. xlstm-350m at full width and depth, trained
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 4, 1
+HYMBA_TRAFFIC = {"prefix": 0, "requests": [(32, False)] * 4,
+                 "profile_len": 8}
+FAMILY_ARCHS = ("mixtral-8x22b", "arctic-480b", "hymba-1.5b", "xlstm-350m")
+# 13d serving: a 60-token prompt and 8 decode steps pass the reduced
+# window of 64, so mixtral's and hymba's rings wrap
+FAMILY_PROMPT, FAMILY_STEPS, FAMILY_MAX_SEQ = 60, 8, 80
+MOE_TRAIN_LR = 1e-2              # 13b: SGD, no clip (phase 11b's step)
+
+
+def moe_serve_phase(dev, cfg=None) -> tuple:
+    """13a: mixtral-8x22b at full width, MOE_SERVE_LAYERS layers, through
+    the 8-bit cache with phase 7's traffic (serve_run). With 4 slots the
+    decode capacity is 1 token per expert, so tokens are dropped (GShard's
+    rule, as in the reference)."""
+    from repro_torch import configs
+    cfg = cfg or dataclasses.replace(configs.get("mixtral-8x22b"),
+                                     num_layers=MOE_SERVE_LAYERS,
+                                     kv_quant_bits=SERVE_BITS)
+    counts, numbers = serve_run(dev, cfg, "13a serve mixtral x4",
+                                PHASE7_TRAFFIC)
+    # every decode step reads every weight once (the MoE runs all experts
+    # on its (E, C, d) buffer)
+    numbers["weight_read_floor_ms"] = (numbers["params"] * 4 / PEAK_BYTES_S
+                                       * 1e3)
+    return counts, numbers
+
+
+def moe_train_phase(dev, cfg=None, batch: int = 8, seq: int = 128) -> dict:
+    """13b: mixtral-8x22b at full width, MOE_TRAIN_LAYERS layer, 2 steps of
+    allgather_packed with EF (R 4, chunk 256) and SGD without clip:
+    AdamW's functional update holds the params, grads, clipped grads, EF
+    and old and new moments at once, ~104 GB at 2.91e9 values, past the
+    card's 80 GB. encode_ef, unpack_dequant and fwht launch once per leaf
+    per step; loss and params finite; then an expert leaf's payload (words,
+    scales, EF residual) on rows past 2^31 bytes into the leaf bitwise its
+    CPU encode."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import batch_for_shape
+    from repro_torch.dist import gradcomp as G
+    from repro_torch.dist import step as step_lib
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optimizer import optim
+
+    cfg = cfg or dataclasses.replace(configs.get("mixtral-8x22b"),
+                                     num_layers=MOE_TRAIN_LAYERS)
+    gc = G.GradCompConfig(bits=4)
+    opt = optim.sgd(MOE_TRAIN_LR)
+    step = step_lib.make_train_step(cfg, opt, gc)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, ef = step_lib.init_train_state(cfg, opt, gc, seed=0,
+                                                      device=dev)
+    leaves, spec = tree_lib.flatten(params)
+    n_leaves, n_values = len(leaves), sum(x.numel() for x in leaves)
+    log(f"[13b train mixtral x1] {n_leaves} leaves, {n_values} values, "
+        f"largest {max(x.numel() for x in leaves)}")
+    losses, secs, per_step = [], [], []
+    ops.reset_launch_counts()
+    for s in range(2):
+        b = batch_for_shape(cfg, batch, seq, s, 0, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt_state, ef, m = step(params, opt_state, ef, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        per_step.append(ops.launch_counts())
+    counts = per_step[-1]
+    prev = {k: 0 for k in counts}
+    for s, c in enumerate(per_step):
+        for k in ("encode_ef", "unpack_dequant", "fwht"):
+            if c[k] - prev[k] != n_leaves:
+                raise AssertionError(f"13b step {s}: {k} launched "
+                                     f"{c[k] - prev[k]} times, want "
+                                     f"{n_leaves}")
+        prev = c
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (all(map(math.isfinite, losses)) and all(
+            bool(torch.isfinite(x).all()) for x in tree_lib.leaves(params))):
+        raise AssertionError(f"13b: non-finite loss or params {losses}")
+    del opt_state, ef, m, b
+    torch.cuda.empty_cache()
+
+    # the expert leaf e_gate (E, d, f) through the codec's leaf encode on
+    # the card; rows across and past 2^31 bytes against the CPU encode
+    # "blocks" sorts first among the top-level keys, and mixtral's block
+    # leaves are plain tensors: leaf i is the i-th block key in sorted order
+    i = sorted(params["blocks"]).index("e_gate")
+    u = tree_lib.leaves(params)[i]
+    payload, resid = G.encode_leaf_ef(u, i, gc, 0)
+    chunks = G._to_chunks(u, gc.chunk)
+    rows = chunks.shape[0]
+    r_cross = 2 ** 31 // (gc.chunk * 4)          # first row past 2^31 bytes
+    signs = G._frame_signs(i, gc, "cpu")
+    checked = []
+    for r0 in (r_cross - 32, rows - 64) if rows >= r_cross + 32 else ():
+        want_w, want_s, want_r = ref.encode_ef(chunks[r0:r0 + 64].cpu(),
+                                               signs, gc.bits)
+        got = (payload["words"][r0:r0 + 64].cpu(),
+               payload["scale"][r0:r0 + 64].cpu(),
+               resid.reshape(rows, gc.chunk)[r0:r0 + 64].cpu())
+        if not (torch.equal(got[0], want_w) and torch.equal(got[1], want_s)
+                and torch.equal(got[2], want_r)):
+            raise AssertionError(f"13b: e_gate rows {r0}..{r0 + 64} differ "
+                                 "from the CPU encode")
+        checked.append([r0, r0 + 64, (r0 + 64) * gc.chunk * 4])
+    out = {"leaves": n_leaves, "values": n_values, "losses": losses,
+           "step_s": secs, "peak_mem_GB": peak_gb, "launches": counts,
+           "optimizer": f"sgd({MOE_TRAIN_LR}), no clip",
+           "e_gate_rows": rows, "rows_checked_bitwise": checked}
+    log(f"[13b train mixtral x1] {json.dumps(out)}")
+    del params, payload, resid, chunks, u, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def hymba_serve_phase(dev, cfg=None) -> tuple:
+    """13c: hymba-1.5b at full width and all 32 layers through the 8-bit
+    cache: 4 cold 32-token prompts, SERVE_NEW tokens each (its prefill
+    steps decode, so each prompt token launches a decode step's
+    kernels)."""
+    from repro_torch import configs
+    cfg = cfg or dataclasses.replace(configs.get("hymba-1.5b"),
+                                     kv_quant_bits=SERVE_BITS)
+    return serve_run(dev, cfg, "13c serve hymba x32", HYMBA_TRAFFIC)
+
+
+def families_card_vs_cpu(dev, archs=FAMILY_ARCHS) -> dict:
+    """13d: each reduced config on the CPU and on the card from the same
+    weights: two train steps within phase 6's bounds; served through the
+    8-bit cache (xlstm has none) past the window, both devices fed the
+    CPU's greedy tokens, logits within SMALL_LOGIT_TOL and greedy tokens
+    equal; for the MoE families two card runs of the forward and backward
+    bitwise."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.dist import gradcomp as G
+    from repro_torch.models import decode as decode_lib
+    from repro_torch.models import model as model_lib
+
+    out = {}
+    for arch in archs:
+        small = configs.get_reduced(arch)
+        rec = {"train": train_card_vs_cpu(dev, small, G.GradCompConfig(),
+                                          f"13d {arch} train")}
+        scfg = dataclasses.replace(
+            small, kv_quant_bits=SERVE_BITS
+            if small.block != "xlstm_pair" else None)
+        params = {"cpu": model_lib.init_params(0, scfg, "cpu")}
+        params["card"] = tree_lib.map(lambda x: x.to(dev), params["cpu"])
+        gen = torch.Generator()
+        gen.manual_seed(7)
+        toks = torch.randint(0, small.vocab_size, (2, FAMILY_PROMPT),
+                             generator=gen, dtype=torch.int32)
+        logits, states = {}, {}
+        for d, device in (("cpu", "cpu"), ("card", dev)):
+            lg, states[d] = decode_lib.prefill(scfg, params[d],
+                                               toks.to(device),
+                                               FAMILY_MAX_SEQ)
+            logits[d] = [lg.cpu()]
+        for _ in range(FAMILY_STEPS):
+            tok = decode_lib.greedy_token(logits["cpu"][-1])
+            for d, device in (("cpu", "cpu"), ("card", dev)):
+                lg, states[d] = decode_lib.decode_step(
+                    scfg, params[d], states[d], tok.to(device))
+                logits[d].append(lg.cpu())
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(logits["cpu"], logits["card"]))
+        same = all(torch.equal(a.argmax(-1), b.argmax(-1))
+                   for a, b in zip(logits["cpu"], logits["card"]))
+        pos = int(states["card"].pos[0])
+        rec["serve"] = {"logits_max_abs_diff": err, "greedy_equal": same,
+                        "positions": pos,
+                        "cache_len": decode_lib._cache_len_of(states["card"])}
+        if not (err <= SMALL_LOGIT_TOL and same):
+            raise AssertionError(f"13d {arch}: served card and CPU disagree "
+                                 f"({rec['serve']})")
+        if small.num_experts:
+            batch = {"tokens": toks[:, :33].to(dev)}
+            grads = []
+            for _ in range(2):
+                leaves, spec = tree_lib.flatten(params["card"])
+                diff = [x.detach().clone().requires_grad_() for x in leaves]
+                loss = model_lib.loss_fn(small, tree_lib.unflatten(
+                    spec, diff), batch)
+                grads.append([loss.detach()] + list(
+                    torch.autograd.grad(loss, diff)))
+            rec["moe_two_runs_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(*grads))
+            if not rec["moe_two_runs_bitwise"]:
+                raise AssertionError(f"13d {arch}: two card runs of the MoE "
+                                     "forward and backward differ")
+        log(f"[13d {arch}] {json.dumps(rec)}")
+        out[arch] = rec
+        del params, states
+    return out
+
+
+def xlstm_train_phase(dev, cfg=None, steps: int = 2) -> dict:
+    """13e: xlstm-350m at full width and all 24 layers, `steps` steps of
+    launch.train.train at the launcher's defaults (AdamW, batch 8, seq
+    128, R 4, allgather_packed with EF): encode_ef, unpack_dequant and
+    fwht once per leaf per step."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.dist import gradcomp as G
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as model_lib
+
+    cfg = cfg or configs.get("xlstm-350m")
+    n_leaves = len(tree_lib.leaves(model_lib.param_shapes(cfg),
+                                   is_leaf=model_lib.is_shape))
+    per_step = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params, losses, secs = train(
+        cfg, steps=steps, batch_size=8, seq_len=128,
+        gc=G.GradCompConfig(bits=4), device=dev, log_every=1,
+        on_step=lambda s, m: per_step.append(ops.launch_counts()))
+    prev = {k: 0 for k in per_step[0]}
+    for s, c in enumerate(per_step):
+        for k in ("encode_ef", "unpack_dequant", "fwht"):
+            if c[k] - prev[k] != n_leaves:
+                raise AssertionError(f"13e step {s}: {k} launched "
+                                     f"{c[k] - prev[k]} times, want "
+                                     f"{n_leaves}")
+        prev = c
+    if not (all(map(math.isfinite, losses)) and all(
+            bool(torch.isfinite(x).all()) for x in tree_lib.leaves(params))):
+        raise AssertionError(f"13e: non-finite loss or params {losses}")
+    out = {"leaves": n_leaves, "losses": losses, "step_s": secs,
+           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": per_step[-1]}
+    log(f"[13e train xlstm x24] {json.dumps(out)}")
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1762,11 +2120,9 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch import tree as tree_lib
     from repro_torch.dist import gradcomp as G
-    from repro_torch.dist import step as step_lib
     from repro_torch.kernels import _build, checks, ops, ref
     from repro_torch.launch.train import train
     from repro_torch.models import model as model_lib
-    from repro_torch.optimizer import optim
 
     dev = torch.device("cuda")
     model_lib.disable_tf32()
@@ -1921,7 +2277,9 @@ def main() -> int:
     # read u, dither, mask; write words + scale; FWHT, scale, dither, quantize
     bounds["encode"] = bound_ms(coords1 * (4 + 4 + bits / 8) + rows1 * 8,
                                 coords1 * ((n_levels + 1) + 10))
-    del leaves1, draws
+    # the loops' variables too: the last leaf, its dither and residual
+    # (~3.4 GB) would stay allocated through every later phase
+    del leaves1, draws, u, s, d, m, kw, ks, kr, rw, rs
     torch.cuda.empty_cache()
 
     for name in ("encode", "encode_ef", "unpack_dequant", "fwht"):
@@ -2006,39 +2364,7 @@ def main() -> int:
     clock.done("5 train x1 dithered")
 
     # -- 6. small input: the card vs the CPU's plain versions -----------------
-    small = configs.get_reduced("yi-6b")
-    lr = 3e-4
-    states, step_fns = {}, {}
-    for d in ("cpu", "cuda"):
-        opt = optim.adamw(optim.warmup_cosine(lr, 1, 10), weight_decay=0.1)
-        step_fns[d] = step_lib.make_train_step(small, opt, gc_ef,
-                                               clip_norm=1.0)
-        p, o, e = step_lib.init_train_state(small, opt, gc_ef, seed=0,
-                                           device="cpu")
-        states[d] = tuple(tree_lib.map(lambda x: x.to(d), s)
-                          for s in (p, o, e))
-    tg = torch.Generator()
-    tg.manual_seed(4)
-    for s in range(2):
-        toks = torch.randint(0, small.vocab_size, (2, 17), generator=tg,
-                             dtype=torch.int32)
-        out = {}
-        for d in ("cpu", "cuda"):
-            *states[d], m = step_fns[d](*states[d], {"tokens": toks.to(d)})
-            out[d] = float(m["loss"])
-        diffs = torch.cat([(a - b.cpu()).abs().flatten() for a, b in zip(
-            tree_lib.leaves(states["cpu"][0]),
-            tree_lib.leaves(states["cuda"][0]))])
-        log(f"[small] step {s}: loss cpu {out['cpu']} cuda {out['cuda']} "
-            f"max|dparam| {float(diffs.max()):.3g} "
-            f"median {float(diffs.median()):.3g}")
-        # f32 sums differ in order between CPU and card; a coordinate whose
-        # code lands in the next bin moves Adam's step by up to ~2 lr
-        if not (abs(out["cpu"] - out["cuda"]) <= 1e-4 * abs(out["cpu"])
-                and float(diffs.max()) <= 3 * lr * (s + 1)
-                and float(diffs.median()) <= 1e-6):
-            raise AssertionError("card and CPU disagree on the small input")
-    del states, step_fns
+    train_card_vs_cpu(dev, configs.get_reduced("yi-6b"), gc_ef, "small")
     clock.done("6 small train, card vs CPU")
 
     # -- 7. the serving main path: yi-6b, 32 layers, 8-bit NDSC KV cache -------
@@ -2066,6 +2392,18 @@ def main() -> int:
     clock.done("11a one NCCL rank")
     dist_ranks = ranks_phase()
     clock.done("11b-d four ranks sharing the card")
+
+    # -- 13. the other block families (models/{moe,ssm,xlstm}) ---------------
+    moe_serve_counts, moe_serve = moe_serve_phase(dev)
+    clock.done("13a serve mixtral x4")
+    moe_train = moe_train_phase(dev)
+    clock.done("13b train mixtral x1")
+    _, hymba_serve = hymba_serve_phase(dev)
+    clock.done("13c serve hymba x32")
+    families = families_card_vs_cpu(dev)
+    clock.done("13d reduced families, card vs CPU")
+    xlstm_train = xlstm_train_phase(dev)
+    clock.done("13e train xlstm x24")
 
     # -- 12. result lines -------------------------------------------------------
     names = {
@@ -2102,6 +2440,12 @@ def main() -> int:
               "codecs": codec_numbers, "federation": fed_numbers,
               "quantize_pack_ratq_train": ratq_pack,
               "dist_one_rank": dist_a, "dist_four_ranks": dist_ranks,
+              "families": {"serve_mixtral_x4": moe_serve,
+                           "serve_mixtral_x4_launches": moe_serve_counts,
+                           "train_mixtral_x1": moe_train,
+                           "serve_hymba_x32": hymba_serve,
+                           "card_vs_cpu": families,
+                           "train_xlstm_x24": xlstm_train},
               "phase_s": clock.seconds}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

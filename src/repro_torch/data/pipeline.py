@@ -1,5 +1,6 @@
-"""Synthetic data (port of `repro.data.pipeline`): the LM token stream and
-the convex problems of the paper's §5.
+"""Synthetic data (port of `repro.data.pipeline`): the LM token stream, the
+vision and audio frontends' stand-in batches, and the convex problems of
+the paper's §5.
 
 The token stream is order-1 Markov sequences over a fixed low-rank random
 transition table: learnable structure with no I/O. A batch is a pure
@@ -64,14 +65,33 @@ class TokenStream:
 
 def batch_for_shape(cfg, batch_size: int, seq_len: int, step: int = 0,
                     seed: int = 0, device=None) -> dict:
-    """A real batch for a text model: {"tokens": (B, seq_len + 1) int32},
-    on `device` (`cuda` unless asked for the CPU)."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"frontend={cfg.frontend!r} batches are not ported yet")
+    """A real batch matching `configs.input_specs`' layouts, on `device`
+    (`cuda` unless asked for the CPU): {"tokens": (B, seq_len + 1) int32}
+    for a text model; the audio frontend's {"embeds": (B, seq_len, d) f32
+    N(0, 0.02²), "targets": (B, seq_len) int32}; the vision frontend's
+    {"image_embeds": (B, num_patches, d) f32 N(0, 0.02²), "tokens": (B,
+    seq_len − num_patches + 1) int32}. A pure function of (seed, step)."""
     device = resolve_device(device)
-    return TokenStream(cfg.vocab_size, seq_len, batch_size, seed,
-                       device=str(device)).batch(step)
+    if cfg.frontend is None:
+        return TokenStream(cfg.vocab_size, seq_len, batch_size, seed,
+                           device=str(device)).batch(step)
+    gen = _generator((seed * 1_000_003 + step) % 2 ** 63, device)
+    if cfg.frontend == "audio":
+        embeds = torch.randn(batch_size, seq_len, cfg.d_model,
+                             generator=gen, device=device) * 0.02
+        return {"embeds": embeds,
+                "targets": torch.randint(
+                    0, cfg.vocab_size, (batch_size, seq_len), generator=gen,
+                    device=device).to(torch.int32)}
+    if cfg.frontend == "vision":
+        text_len = seq_len - cfg.num_patches
+        image = torch.randn(batch_size, cfg.num_patches, cfg.d_model,
+                            generator=gen, device=device) * 0.02
+        return {"image_embeds": image,
+                "tokens": torch.randint(
+                    0, cfg.vocab_size, (batch_size, text_len + 1),
+                    generator=gen, device=device).to(torch.int32)}
+    raise ValueError(f"unknown frontend {cfg.frontend!r}")
 
 
 # ---------------------------------------------------------------------------

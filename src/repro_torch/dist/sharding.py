@@ -80,16 +80,22 @@ def param_spec(name: str, shape: tuple, model_axis: int,
 
 
 def _is_shape(x) -> bool:
-    return isinstance(x, tuple) and all(isinstance(d, int) for d in x)
+    return (isinstance(x, tuple) and not hasattr(type(x), "_fields")
+            and all(isinstance(d, int) for d in x))
 
 
 def param_specs(params, model_axis: int):
-    """The tree of `param_spec`s for `params`, a nested dict (or list) whose
-    leaves are tensors or shape tuples (`models.model.param_shapes`)."""
+    """The tree of `param_spec`s for `params`, a nested dict, list or
+    NamedTuple (the Mamba and xLSTM weights) whose leaves are tensors or
+    shape tuples (`models.model.param_shapes`). A NamedTuple field is
+    named by its field name, as the reference's tree path names it."""
 
     def visit(path: str, t):
         if isinstance(t, dict):
             return {k: visit(f"{path}.{k}", v) for k, v in t.items()}
+        if hasattr(type(t), "_fields"):
+            return type(t)(*[visit(f"{path}.{f}", v)
+                             for f, v in zip(t._fields, t)])
         if isinstance(t, list) or (isinstance(t, tuple) and not _is_shape(t)):
             return type(t)(visit(f"{path}.{i}", v) for i, v in enumerate(t))
         shape = tuple(t) if _is_shape(t) else tuple(t.shape)

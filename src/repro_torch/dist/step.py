@@ -82,9 +82,10 @@ def _pmean(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def _meta_params(cfg):
-    """The model's parameter tree as `meta` tensors (shapes, dtypes)."""
+    """The model's parameter tree as `meta` tensors (shapes, dtypes), the
+    NamedTuple subtrees of the Mamba and xLSTM blocks kept."""
     shapes, spec = tree_lib.flatten(model_lib.param_shapes(cfg),
-                                    is_leaf=lambda s: isinstance(s, tuple))
+                                    is_leaf=model_lib.is_shape)
     return tree_lib.unflatten(spec, [
         torch.empty(s, dtype=cfg.compute_dtype, device="meta")
         for s in shapes])
@@ -396,8 +397,7 @@ def serve_state_specs(cfg, mesh, global_batch: int, seq_len: int):
         raise NotImplementedError(
             f"mesh={mesh!r}: serving state across workers is not ported "
             "yet (ROADMAP queue 1 item 7)")
-    state = decode_lib.init_decode_state(cfg, global_batch, seq_len,
-                                         device="meta")
+    state = decode_lib.decode_state_specs(cfg, global_batch, seq_len)
     return (_specs(_meta_params(cfg)),
             decode_lib.DecodeState(caches=_specs(state.caches),
                                    pos=_specs(state.pos)),

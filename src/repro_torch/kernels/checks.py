@@ -36,6 +36,10 @@ ATTN_DH = (32, 64, 128, 256)   # every dh of the warp-resident kernel
 # 4096 / 4097 (a last split of one position) at 8 (b, kv-head) pairs
 ATTN_C = (1, 100, 512, 1000, 4096, 4097)
 ATTN_G = (1, 8)
+# (dh, G) of the served families beside yi-6b's (128, 8): hymba-1.5b's
+# 25/5 heads at dh 64 and mixtral-8x22b's 48/8 at dh 128, swept over
+# ATTN_C
+ATTN_FAMILY_SHAPES = ((64, 5), (128, 6))
 # (dh, G) outside the warp-resident kernel's G <= 8, 32 <= dh <= 256, which
 # run the shared-memory tile kernel, at C of one tile and of several splits
 ATTN_TILE_SHAPES = ((16, 8), (128, 12), (512, 2))

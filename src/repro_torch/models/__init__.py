@@ -1,1 +1,3 @@
-"""The model zoo (only the dense attn_mlp family is ported so far)."""
+"""The model zoo (port of `repro.models`): the six block families of
+`model`, their decode path (`decode`, `kvquant`), the MoE, Mamba and xLSTM
+blocks (`moe`, `ssm`, `xlstm`) and the shared layers (`layers`)."""

@@ -1,30 +1,36 @@
 """Decode (serving) path: one-token steps against explicit caches (port of
-`repro.models.decode`, attn_mlp family).
+`repro.models.decode`).
 
 Per-layer caches are stacked on a leading L axis, as in the reference; the
 reference's `lax.scan` over (block params, block cache) is a Python loop
-over the layers here. The attention cache is either
+over the layers here. Cache kinds per block family:
 
-  f32     — "k", "v": (L, B, C, K, dh) in the compute dtype;
-  NDSC    — with `cfg.kv_quant_bits`: "k_words"/"v_words" (L, B, C, K,
-            dh·bits/32) int32, "k_scale"/"v_scale" (L, B, C, K) f32 and the
-            per-layer rotation "signs" (L, K, dh), written through
-            `kvquant.encode_entry` by prefill and decode alike (one wire
-            format), read through `kvquant.quant_decode_attention`.
+  attention    — attn_mlp, attn_moe, attn_moe_dense and hybrid. Either
+                 f32 "k", "v": (L, B, C, K, dh) in the compute dtype, or
+                 with `cfg.kv_quant_bits` the NDSC cache "k_words" /
+                 "v_words" (L, B, C, K, dh·bits/32) int32, "k_scale" /
+                 "v_scale" (L, B, C, K) f32 and the per-layer rotation
+                 "signs" (L, K, dh), written through `kvquant.encode_entry`
+                 by prefill and decode alike (one wire format), read
+                 through `kvquant.quant_decode_attention`. A sliding-window
+                 cache is a ring of C = window slots (position p in slot
+                 p % C).
+  hybrid       — the KV ring cache + the Mamba state "ssm_h" (L, B, di, n).
+  xlstm_pair   — the mLSTM state "m_c" (L, B, H, dh, dh), "m_n", "m_m"
+                 and the sLSTM state "s_c", "s_n", "s_h" (L, B, d).
+  moe          — the KV cache only (experts are stateless).
+  encoder      — no decode (raises; callers consult cfg.decode_supported).
 
-A sliding-window cache is a ring of C = window slots (position p in slot
-p % C). `pos` is a per-slot (B,) counter, so the continuous-batching engine
+`pos` is a per-slot (B,) counter, so the continuous-batching engine
 (`repro_torch.serve`) refills finished slots independently.
 
 Unlike the reference, whose arrays are immutable, the caches are updated IN
-PLACE: `decode_step` writes the new K/V into the state's cache tensors and
-returns a state holding those same tensors (with a new `pos`), and
-`scatter_slot` writes into the batched state it is given. A state passed to
-either must not be read again as the old state. `extract_slot` returns
-copies, so a prefix-cache entry never aliases a live state.
-
-Only the attn_mlp family is ported; the other blocks raise
-`NotImplementedError`.
+PLACE: `decode_step` writes the new K/V and recurrent states into the
+state's cache tensors and returns a state holding those same tensors (with
+a new `pos`), and `scatter_slot` writes into the batched state it is given.
+A state passed to either must not be read again as the old state.
+`extract_slot` returns copies, so a prefix-cache entry never aliases a live
+state.
 """
 from __future__ import annotations
 
@@ -33,10 +39,13 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import tree as tree_lib
 from repro_torch.models import kvquant
 from repro_torch.models import layers as L
-from repro_torch.models.model import (ModelConfig, _require_attn_mlp,
-                                      block_forward, layer_params)
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
+from repro_torch.models.model import ModelConfig, block_forward, layer_params
 
 
 class DecodeState(NamedTuple):
@@ -59,32 +68,58 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     `device` (`cuda` unless asked for the CPU)."""
     if not cfg.decode_supported:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    _require_attn_mlp(cfg)
     device = resolve_device(device)
     dt = dtype or cfg.compute_dtype
+    f32 = torch.float32
     nl = cfg.num_scanned
     c = cache_len(cfg, max_seq)
     caches: dict = {}
-    if cfg.kv_quant_bits:
-        qc = kvquant.init_cache(nl, batch, c, cfg.num_kv_heads, cfg.dh,
-                                cfg.kv_quant_bits, device=device)
-        caches.update(qc._asdict())
-        caches["signs"] = torch.stack([
-            kvquant.head_signs(0, layer, cfg.num_kv_heads, cfg.dh,
-                               device=device) for layer in range(nl)])
-    else:
-        for side in ("k", "v"):
-            caches[side] = torch.zeros(
-                (nl, batch, c, cfg.num_kv_heads, cfg.dh), dtype=dt,
-                device=device)
+
+    def zeros(shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.block in ("attn_mlp", "attn_moe", "attn_moe_dense", "hybrid"):
+        if cfg.kv_quant_bits:
+            qc = kvquant.init_cache(nl, batch, c, cfg.num_kv_heads, cfg.dh,
+                                    cfg.kv_quant_bits, device=device)
+            caches.update(qc._asdict())
+            caches["signs"] = torch.stack([
+                kvquant.head_signs(0, layer, cfg.num_kv_heads, cfg.dh,
+                                   device=device) for layer in range(nl)])
+        else:
+            for side in ("k", "v"):
+                caches[side] = zeros((nl, batch, c, cfg.num_kv_heads,
+                                      cfg.dh), dt)
+    if cfg.block == "hybrid":
+        caches["ssm_h"] = zeros((nl, batch, cfg.di, cfg.ssm_state))
+    if cfg.block == "xlstm_pair":
+        d, hh = cfg.d_model, cfg.num_heads
+        dh = d // hh
+        caches["m_c"] = zeros((nl, batch, hh, dh, dh))
+        caches["m_n"] = zeros((nl, batch, hh, dh))
+        caches["m_m"] = torch.full((nl, batch, hh), -1e30, dtype=f32,
+                                   device=device)
+        for name in ("s_c", "s_n", "s_h"):
+            caches[name] = zeros((nl, batch, d))
     return DecodeState(caches=caches,
                        pos=torch.zeros((batch,), dtype=torch.int32,
                                        device=device))
 
 
+def decode_state_specs(cfg: ModelConfig, batch: int,
+                       max_seq: int) -> DecodeState:
+    """The state of `init_decode_state` as `meta` tensors (shapes, dtypes,
+    no storage), the port's stand-in for the reference's
+    ShapeDtypeStructs."""
+    return init_decode_state(cfg, batch, max_seq, device="meta")
+
+
 def _cache_len_of(state: DecodeState) -> int:
-    key = "k_words" if "k_words" in state.caches else "k"
-    return state.caches[key].shape[2]
+    """Positions in the attention cache; 0 for a family without one."""
+    for key in ("k_words", "k"):
+        if key in state.caches:
+            return state.caches[key].shape[2]
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -126,12 +161,47 @@ def _attn_decode(cfg: ModelConfig, p: dict, cache: dict, h: torch.Tensor,
 
 def block_decode(cfg: ModelConfig, p: dict, cache: dict, h: torch.Tensor,
                  pos: torch.Tensor, c: int) -> torch.Tensor:
-    """One layer, one token: h (B, 1, d) → h. `cache` holds this layer's
-    cache views and is updated in place."""
-    _require_attn_mlp(cfg)
-    h = h + _attn_decode(cfg, p, cache, h, pos, c)
-    x = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
-    return h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    """One scanned unit, one token: h (B, 1, d) → h. `cache` holds this
+    layer's cache views and is updated in place."""
+    if cfg.block in ("attn_mlp", "attn_moe", "attn_moe_dense"):
+        h = h + _attn_decode(cfg, p, cache, h, pos, c)
+    if cfg.block == "hybrid":
+        attn_out = _attn_decode(cfg, p, cache, h, pos, c)
+        x = L.rmsnorm(h, p["attn_norm"], cfg.norm_eps)
+        mamba_out, ssm_h = ssm_lib.mamba_decode_step(p["mamba"], x,
+                                                     cache["ssm_h"])
+        cache["ssm_h"].copy_(ssm_h)
+        h = h + 0.5 * (attn_out + mamba_out)
+    if cfg.block in ("attn_mlp", "hybrid"):
+        x = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
+        h = h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    if cfg.block in ("attn_moe", "attn_moe_dense"):
+        x = L.rmsnorm(h, p["moe_norm"], cfg.norm_eps)
+        moe_out = moe_lib.moe_ffn(
+            x, p["router"], p["e_gate"], p["e_up"], p["e_down"],
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        if cfg.block == "attn_moe_dense":
+            xm = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
+            moe_out = moe_out + L.swiglu(xm, p["w_gate"], p["w_up"],
+                                         p["w_down"])
+        h = h + moe_out
+    if cfg.block == "xlstm_pair":
+        x = L.rmsnorm(h, p["m_norm"], cfg.norm_eps)
+        m_state = xlstm_lib.MLSTMState(cache["m_c"], cache["m_n"],
+                                       cache["m_m"])
+        m_out, m_state = xlstm_lib.mlstm_decode_step(p["mlstm"], x,
+                                                     cfg.num_heads, m_state)
+        h = h + m_out
+        x = L.rmsnorm(h, p["s_norm"], cfg.norm_eps)
+        s_state = xlstm_lib.SLSTMState(cache["s_c"], cache["s_n"],
+                                       cache["s_h"])
+        s_out, s_state = xlstm_lib.slstm_decode_step(p["slstm"], x,
+                                                     cfg.num_heads, s_state)
+        h = h + s_out
+        for name, new in zip(("m_c", "m_n", "m_m", "s_c", "s_n", "s_h"),
+                             tuple(m_state) + tuple(s_state)):
+            cache[name].copy_(new)
+    return h
 
 
 # ---------------------------------------------------------------------------
@@ -144,13 +214,13 @@ def decode_step(cfg: ModelConfig, params: dict, state: DecodeState,
     caches of `state` are updated in place (see the module docstring)."""
     if not cfg.decode_supported:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    _require_attn_mlp(cfg)
     h = L.embed(tokens, params["embed"]).to(cfg.compute_dtype)  # (B, 1, d)
     c = _cache_len_of(state)
+    leaves, spec = tree_lib.flatten(params["blocks"])
     for i in range(cfg.num_scanned):
         layer_cache = {name: x[i] for name, x in state.caches.items()}
-        h = block_decode(cfg, layer_params(params, i), layer_cache, h,
-                         state.pos, c)
+        h = block_decode(cfg, tree_lib.unflatten(spec, [x[i] for x in leaves]),
+                         layer_cache, h, state.pos, c)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = (h[:, 0] @ params["head"]).to(torch.float32)   # (B, V)
     return logits, DecodeState(caches=state.caches, pos=state.pos + 1)
@@ -181,9 +251,9 @@ def decode_tokens(cfg: ModelConfig, params: dict, state: DecodeState,
 # Slot scatter / extract: the continuous-batching and prefix-cache primitives
 # ---------------------------------------------------------------------------
 # Cache leaves indexed (L, B, C, ...) by position along axis 2 — the leaves a
-# prefix-cache entry trims to its own length. "signs" is the per-layer
-# rotation shared by every slot. (The reference also has per-slot,
-# position-free recurrent leaves; the attn_mlp family has none.)
+# prefix-cache entry trims to its own length. Everything else with a batch
+# axis (the recurrent states "ssm_h", "m_*", "s_*") is per-slot but
+# position-free; "signs" is the per-layer rotation shared by every slot.
 POSITIONAL_CACHE_KEYS = frozenset(
     {"k", "v", "k_words", "k_scale", "v_words", "v_scale"})
 SHARED_CACHE_KEYS = frozenset({"signs"})
@@ -196,13 +266,19 @@ def scatter_slot(batched: DecodeState, single: DecodeState,
     Positional leaves of `single` may be trimmed to a prefix length C' <= C
     (see `extract_slot`); the slot's remaining C - C' positions are zeroed,
     so the result is bitwise the state a fresh batch-1 prefill of the same
-    tokens would produce — the prefix-cache bit-exactness contract."""
+    tokens would produce — the prefix-cache bit-exactness contract.
+    Per-slot, position-free leaves (recurrent states) are written whole."""
     slot = int(slot)
-    for name in POSITIONAL_CACHE_KEYS & batched.caches.keys():
-        b, s = batched.caches[name], single.caches[name]
-        n = s.shape[2]
-        b[:, slot, :n] = s[:, 0]
-        b[:, slot, n:] = 0
+    for name, b in batched.caches.items():
+        if name in SHARED_CACHE_KEYS:
+            continue
+        s = single.caches[name]
+        if name in POSITIONAL_CACHE_KEYS:
+            n = s.shape[2]
+            b[:, slot, :n] = s[:, 0]
+            b[:, slot, n:] = 0
+        else:
+            b[:, slot] = s[:, 0]
     pos = batched.pos.clone()
     pos[slot] = single.pos[0]
     return DecodeState(caches=batched.caches, pos=pos)
@@ -214,9 +290,10 @@ def extract_slot(state: DecodeState, slot: int, *,
 
     With `trim` (the default) positional cache leaves keep only their
     occupied columns — min(pos, C) of them; ring caches past their window
-    keep all C. `scatter_slot(init, extract_slot(st, i), j)` reproduces
-    slot i of `st` bitwise in slot j (zeros elsewhere). The shared rotation
-    signs are never written, so they are shared, not copied."""
+    keep all C. Per-slot, position-free leaves are copied whole.
+    `scatter_slot(init, extract_slot(st, i), j)` reproduces slot i of `st`
+    bitwise in slot j (zeros elsewhere). The shared rotation signs are
+    never written, so they are shared, not copied."""
     slot = int(slot)
     length = int(state.pos[slot])
     caches = {}
@@ -225,7 +302,7 @@ def extract_slot(state: DecodeState, slot: int, *,
             caches[name] = x
             continue
         col = x[:, slot:slot + 1]
-        if trim:
+        if trim and name in POSITIONAL_CACHE_KEYS:
             col = col[:, :, :min(length, x.shape[2])]
         caches[name] = col.clone()
     return DecodeState(caches=caches, pos=state.pos[slot:slot + 1].clone())
@@ -279,19 +356,28 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             max_seq: int):
     """tokens: (B, S) prompt → (last-token logits (B, V), DecodeState at S).
 
-    Runs the blockwise forward with `collect_kv`; when S exceeds the cache
-    (a sliding-window ring) only the last C positions are written, at ring
-    slots position % C, matching decode_step's insert rule. The quantized
-    cache is written through the same `kvquant.encode_entry` as decode."""
+    The attention families run the blockwise forward with `collect_kv`;
+    when S exceeds the cache (a sliding-window ring) only the last C
+    positions are written, at ring slots position % C, matching
+    decode_step's insert rule. The quantized cache is written through the
+    same `kvquant.encode_entry` as decode. The recurrent families (hybrid,
+    xlstm_pair) step `decode_step` token by token, as the reference does,
+    which keeps the prefix contract structural."""
     if not cfg.decode_supported:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    _require_attn_mlp(cfg)
     dev = tokens.device
     b, s = tokens.shape
+    state = init_decode_state(cfg, b, max_seq, device=dev)
+    if cfg.block not in ("attn_mlp", "attn_moe", "attn_moe_dense"):
+        logits = None
+        for t in range(s):
+            logits, state = decode_step(cfg, params, state,
+                                        tokens[:, t:t + 1])
+        return logits, state
+
     c = cache_len(cfg, max_seq)
     h = L.embed(tokens, params["embed"]).to(cfg.compute_dtype)
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
-    state = init_decode_state(cfg, b, max_seq, device=dev)
     if s <= c:
         ring_slots = torch.arange(s, device=dev)           # contiguous
     else:  # ring: the last c positions land at slots (s-c+i) % c
@@ -299,8 +385,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     caches = state.caches
     for i in range(cfg.num_scanned):
-        h, (k, v) = block_forward(cfg, layer_params(params, i), h, positions,
-                                  collect_kv=True)
+        h, _, (k, v) = block_forward(cfg, layer_params(params, i), h,
+                                     positions, collect_kv=True)
         if s > c:
             k, v = k[:, s - c:], v[:, s - c:]
         if cfg.kv_quant_bits:

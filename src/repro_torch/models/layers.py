@@ -1,6 +1,7 @@
 """Transformer layer primitives (port of `repro.models.layers`): RMSNorm,
 embedding, RoPE, blockwise (online-softmax) attention, single-token decode
-attention against an f32 cache, SwiGLU and the chunked cross-entropy.
+attention against an f32 cache, SwiGLU, the GELU MLP and the chunked
+cross-entropy; and the reference's `jax.nn.softplus` / `log_sigmoid`.
 Written in plain torch ops with the reference's
 shapes, padding and operation order; attention keeps the reference's
 online softmax rather than calling `scaled_dot_product_attention`.
@@ -142,11 +143,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """(GELU(x W_up)) W_down, the GELU `jax.nn.gelu`'s default (the tanh
+    approximation) in its op order."""
+    u = x @ w_up
+    cdf = 0.5 * (1.0 + torch.tanh(
+        (2.0 / torch.pi) ** 0.5 * (u + 0.044715 * (u * (u * u)))))
+    return (u * cdf) @ w_down
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus`: logaddexp(x, 0), not torch's thresholded
+    `F.softplus`."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.log_sigmoid`: −softplus(−x)."""
+    return -softplus(-x)
 
 
 # ---------------------------------------------------------------------------

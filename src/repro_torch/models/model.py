@@ -1,14 +1,27 @@
-"""Model config and the dense decoder (port of `repro.models.model`).
+"""Model config and the model zoo (port of `repro.models.model`).
 
-`ModelConfig` is the reference's schema, field for field. The forward pass,
-loss and initializer are ported for `block="attn_mlp"` (yi, llama, phi3,
-mistral); the other families raise `NotImplementedError`.
+`ModelConfig` is the reference's schema, field for field. Six block
+families (`ModelConfig.block`), as in the reference:
+  attn_mlp        — dense decoder (phi3 / yi / llama3.2 / mistral-large /
+                    pixtral)
+  attn_moe        — attention + top-k MoE FFN (mixtral, SWA)
+  attn_moe_dense  — attention + [dense-residual MLP ∥ MoE] (arctic)
+  hybrid          — parallel attention + Mamba heads, then MLP (hymba)
+  xlstm_pair      — (mLSTM, sLSTM) pair per scanned unit (xlstm)
+  encoder         — bidirectional encoder, frame classifier head (hubert)
+and two input frontends: "vision" (precomputed image embeddings prefix
+the text; loss on text positions only) and "audio" (precomputed frame
+embeddings, no token table).
 
 Parameters keep the reference's layout: a dict tree whose block weights are
 STACKED along a leading layer axis, `params["blocks"][name]` of shape
-(L, …). The codec numbers leaves in sorted-key order and chunks each leaf
-whole, so per-layer weights would change every payload. `Transformer`
-holds such a tree as `nn.Parameter`s.
+(L, …); the Mamba and xLSTM weights are NamedTuples of such leaves
+(`p["mamba"]`, `p["mlstm"]`, `p["slstm"]`). The codec numbers leaves in
+`jax.tree` order (sorted dict keys, NamedTuple fields in order) and chunks
+each leaf whole, so per-layer weights would change every payload.
+`Transformer` holds such a tree as `nn.Parameter`s. The reference's
+`lax.scan` over the layers is a Python loop; with `remat` each layer is
+recomputed in the backward pass (`torch.utils.checkpoint`).
 
 Matmuls in float32 run in full float32: TF32 is switched off by
 `disable_tf32()`, which the trainer calls, because TF32 keeps about three
@@ -17,6 +30,7 @@ decimal digits and would move the gradients the codec quantizes.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -24,7 +38,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch import tree as tree_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -116,13 +134,6 @@ class ModelConfig:
         return seq_len
 
 
-def _require_attn_mlp(cfg: ModelConfig) -> None:
-    if cfg.block != "attn_mlp" or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"block={cfg.block!r} frontend={cfg.frontend!r} is not ported "
-            "yet; only the dense text decoder (attn_mlp) is")
-
-
 def disable_tf32() -> None:
     """Keep float32 matmuls and convolutions in full float32 on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -130,49 +141,120 @@ def disable_tf32() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Parameter init
+# Parameter shapes and init
 # ---------------------------------------------------------------------------
+def is_shape(x) -> bool:
+    """A leaf of `param_shapes`' tree: a tuple of ints (a NamedTuple of
+    shapes is a subtree, not a shape)."""
+    return (isinstance(x, tuple) and not hasattr(type(x), "_fields")
+            and all(isinstance(d, int) for d in x))
+
+
+def _has_attn(cfg: ModelConfig) -> bool:
+    return cfg.block in ("attn_mlp", "attn_moe", "attn_moe_dense", "hybrid",
+                         "encoder")
+
+
+def block_shapes(cfg: ModelConfig) -> dict:
+    """One scanned unit's leaf shapes, keys in the reference's
+    `init_block` order."""
+    d = cfg.d_model
+    p: dict = {}
+    if _has_attn(cfg):
+        p.update(attn_norm=(d,), wq=(d, cfg.q_dim), wk=(d, cfg.kv_dim),
+                 wv=(d, cfg.kv_dim), wo=(cfg.q_dim, d))
+    if cfg.block == "hybrid":
+        p["mamba"] = ssm_lib.mamba_shapes(d, cfg.di, cfg.ssm_state)
+    if cfg.block in ("attn_mlp", "hybrid", "attn_moe_dense"):
+        p.update(mlp_norm=(d,), w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff),
+                 w_down=(cfg.d_ff, d))
+    if cfg.block == "encoder":
+        p.update(mlp_norm=(d,), w_up=(d, cfg.d_ff), w_down=(cfg.d_ff, d))
+    if cfg.block in ("attn_moe", "attn_moe_dense"):
+        e = cfg.num_experts
+        p.update(moe_norm=(d,), router=(d, e), e_gate=(e, d, cfg.d_ff),
+                 e_up=(e, d, cfg.d_ff), e_down=(e, cfg.d_ff, d))
+    if cfg.block == "xlstm_pair":
+        p.update(m_norm=(d,), mlstm=xlstm_lib.mlstm_shapes(d, cfg.num_heads),
+                 s_norm=(d,),
+                 slstm=xlstm_lib.slstm_shapes(d, cfg.num_heads))
+    return p
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
-    """The parameter tree's shapes, in the reference's layout."""
-    _require_attn_mlp(cfg)
+    """The parameter tree's shapes, in the reference's layout: block
+    leaves stacked on a leading (num_scanned,) axis; no token table for
+    the audio frontend."""
     n, d = cfg.num_scanned, cfg.d_model
-    return {
-        "blocks": {
-            "attn_norm": (n, d), "wq": (n, d, cfg.q_dim),
-            "wk": (n, d, cfg.kv_dim), "wv": (n, d, cfg.kv_dim),
-            "wo": (n, cfg.q_dim, d), "mlp_norm": (n, d),
-            "w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
-            "w_down": (n, cfg.d_ff, d),
-        },
-        "final_norm": (d,),
-        "embed": (cfg.padded_vocab, d),
-        "head": (d, cfg.padded_vocab),
-    }
+    leaves, spec = tree_lib.flatten(block_shapes(cfg), is_leaf=is_shape)
+    out = {"blocks": tree_lib.unflatten(spec, [(n,) + s for s in leaves]),
+           "final_norm": (d,)}
+    if cfg.frontend != "audio":
+        out["embed"] = (cfg.padded_vocab, d)
+    out["head"] = (d, cfg.padded_vocab)
+    return out
+
+
+def _build(tree, make, name=""):
+    """`tree` of shapes with each shape replaced by make(leaf name, shape),
+    visiting dict keys in insertion order and NamedTuple fields in order."""
+    if is_shape(tree):
+        return make(name, tree)
+    if isinstance(tree, dict):
+        return {k: _build(v, make, k) for k, v in tree.items()}
+    return type(tree)(*[_build(v, make, f)
+                        for f, v in zip(tree._fields, tree)])
 
 
 def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
     """Random parameters from a seeded generator on `device` (`cuda`
-    unless asked for the CPU): norms 1, matrices N(0, 0.02²). Same
-    distribution as the reference's `init_params`, not the same numbers
-    (the tests carry JAX parameters over with `repro_torch.convert`)."""
+    unless asked for the CPU), with the reference's init rules: norms and
+    the Mamba skip 1, the Mamba Δ bias −4.6 (softplus⁻¹(0.01)) and A_log
+    log(1..n), the mLSTM forget gate N(0, 0.02²) + 3, every other matrix
+    N(0, 0.02²). Same distributions as the reference's `init_params`, not
+    the same numbers (the tests carry JAX parameters over with
+    `repro_torch.convert`)."""
     dt = cfg.compute_dtype
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
     def make(name, shape):
-        if name.endswith("norm"):
+        if name.endswith("norm") or name == "d_skip":
             return torch.ones(shape, dtype=dt, device=device)
+        if name == "dt_bias":
+            return torch.full(shape, -4.6, dtype=dt, device=device)
+        if name == "a_log":
+            n = shape[-1]
+            return torch.log(torch.arange(
+                1, n + 1, dtype=torch.float32, device=device)).expand(
+                    shape).to(dt).contiguous()
         w = torch.empty(shape, dtype=torch.float32, device=device)
-        return (w.normal_(generator=gen) * 0.02).to(dt)
+        w = (w.normal_(generator=gen) * 0.02).to(dt)
+        return w + 3.0 if name == "wf" else w
 
-    shapes = param_shapes(cfg)
-    return {k: ({n: make(n, s) for n, s in v.items()} if k == "blocks"
-                else make(k, v)) for k, v in shapes.items()}
+    return _build(param_shapes(cfg), make)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Values in the parameter tree (from its shapes, no allocation)."""
+    return sum(math.prod(s) for s in tree_lib.leaves(param_shapes(cfg),
+                                                     is_leaf=is_shape))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE: top-k of E experts active)."""
+    total = param_count(cfg)
+    if cfg.num_experts:
+        expert_leaf = (3 * cfg.num_experts * cfg.d_model * cfg.d_ff
+                       * cfg.num_layers)
+        active = expert_leaf * cfg.top_k // cfg.num_experts
+        return total - expert_leaf + active
+    return total
 
 
 # ---------------------------------------------------------------------------
-# Forward / loss
+# Block forward (training / prefill share this; decode has its own path)
 # ---------------------------------------------------------------------------
 def _attn_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
               positions: torch.Tensor):
@@ -185,88 +267,180 @@ def _attn_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return q, k, v
 
 
-def block_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
-                  positions: torch.Tensor, collect_kv: bool = False):
-    """One attn_mlp block on one layer's weights `p`. Returns h, or with
-    `collect_kv` (prefill) the pair (h, (k, v)) of the layer's post-RoPE
-    keys and values, (B, S, K, dh) each."""
-    _require_attn_mlp(cfg)
+def _self_attention(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                    positions: torch.Tensor):
+    """(attention output, (k, v)) of one layer."""
     b, s, _ = h.shape
     x = L.rmsnorm(h, p["attn_norm"], cfg.norm_eps)
     q, k, v = _attn_qkv(cfg, p, x, positions)
     o = L.blockwise_attention(q, k, v, causal=cfg.causal,
                               window=cfg.window_or_none())
-    h = h + o.reshape(b, s, cfg.q_dim) @ p["wo"]
-    x = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
-    h = h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
-    return (h, (k, v)) if collect_kv else h
+    return o.reshape(b, s, cfg.q_dim) @ p["wo"], (k, v)
 
 
-_BLOCK_KEYS = ("attn_norm", "mlp_norm", "w_down", "w_gate", "w_up", "wk",
-               "wo", "wq", "wv")
+def block_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                  positions: torch.Tensor, collect_kv: bool = False):
+    """One scanned unit on one layer's weights `p`. Returns (h, aux_loss,
+    kv): kv is the layer's post-RoPE (k, v), (B, S, K, dh) each, with
+    `collect_kv` on a family with attention (prefill), else None."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    kv = None
+    if cfg.block in ("attn_mlp", "attn_moe", "attn_moe_dense", "encoder"):
+        attn_out, kv = _self_attention(cfg, p, h, positions)
+        h = h + attn_out
+    if cfg.block == "hybrid":
+        attn_out, kv = _self_attention(cfg, p, h, positions)
+        x = L.rmsnorm(h, p["attn_norm"], cfg.norm_eps)
+        scan_fn = (ssm_lib.mamba_assoc_scan if cfg.ssm_scan == "associative"
+                   else ssm_lib.mamba_scan)
+        mamba_out, _ = scan_fn(p["mamba"], x)
+        h = h + 0.5 * (attn_out + mamba_out)
+    if cfg.block in ("attn_mlp", "hybrid"):
+        x = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
+        h = h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    if cfg.block == "encoder":
+        x = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
+        h = h + L.gelu_mlp(x, p["w_up"], p["w_down"])
+    if cfg.block in ("attn_moe", "attn_moe_dense"):
+        x = L.rmsnorm(h, p["moe_norm"], cfg.norm_eps)
+        moe_out, moe_aux = moe_lib.moe_ffn(
+            x, p["router"], p["e_gate"], p["e_up"], p["e_down"],
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+            return_aux=True)
+        aux = aux + moe_aux["load_balance_loss"]
+        if cfg.block == "attn_moe_dense":       # arctic: dense-residual ∥ MoE
+            xm = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
+            moe_out = moe_out + L.swiglu(xm, p["w_gate"], p["w_up"],
+                                         p["w_down"])
+        h = h + moe_out
+    if cfg.block == "xlstm_pair":
+        x = L.rmsnorm(h, p["m_norm"], cfg.norm_eps)
+        m_out, _ = xlstm_lib.mlstm_block(p["mlstm"], x, cfg.num_heads)
+        h = h + m_out
+        x = L.rmsnorm(h, p["s_norm"], cfg.norm_eps)
+        s_out, _ = xlstm_lib.slstm_block(p["slstm"], x, cfg.num_heads)
+        h = h + s_out
+    return h, aux, (kv if collect_kv else None)
 
 
 def layer_params(params: dict, i: int) -> dict:
-    """Layer i's block weights, views into the stacked (L, …) leaves."""
-    return {k: params["blocks"][k][i] for k in _BLOCK_KEYS}
+    """Layer i's block weights (NamedTuples kept), views into the stacked
+    (L, …) leaves."""
+    leaves, spec = tree_lib.flatten(params["blocks"])
+    return tree_lib.unflatten(spec, [x[i] for x in leaves])
 
 
-def forward_hidden(cfg: ModelConfig, params: dict, h: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
-    """Run the block stack over the stacked layer weights; with `remat`,
-    each layer is recomputed in the backward pass (torch.utils.checkpoint,
-    the counterpart of the reference's jax.checkpoint)."""
-    blocks = params["blocks"]
-
-    def layer(hh, *weights):
-        return block_forward(cfg, dict(zip(_BLOCK_KEYS, weights)), hh,
-                             positions)
-
-    for i in range(cfg.num_scanned):
-        weights = [blocks[k][i] for k in _BLOCK_KEYS]
-        if cfg.remat and torch.is_grad_enabled():
-            h = checkpoint(layer, h, *weights, use_reentrant=False)
-        else:
-            h = layer(h, *weights)
-    return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-
-
+# ---------------------------------------------------------------------------
+# Full forward / loss
+# ---------------------------------------------------------------------------
 def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
-    _require_attn_mlp(cfg)
+    """Returns (h, positions, targets)."""
+    dt = cfg.compute_dtype
+    if cfg.frontend == "audio":
+        h = batch["embeds"].to(dt)
+        positions = torch.arange(h.shape[1], dtype=torch.int32,
+                                 device=h.device)[None, :]
+        return h, positions, batch.get("targets")
     toks = batch["tokens"]
     tok_in, targets = toks[:, :-1], toks[:, 1:]
-    h = L.embed(tok_in, params["embed"]).to(cfg.compute_dtype)
+    h = L.embed(tok_in, params["embed"]).to(dt)
+    if cfg.frontend == "vision":
+        img = batch["image_embeds"].to(dt)                 # (B, P, d)
+        h = torch.cat([img, h], dim=1)
+        # only text positions contribute to the loss
+        pad = torch.full(img.shape[:2], -1, dtype=targets.dtype,
+                         device=targets.device)
+        targets = torch.cat([pad, targets], dim=1)
     positions = torch.arange(h.shape[1], dtype=torch.int32,
                              device=h.device)[None, :]
     return h, positions, targets
 
 
+def forward_hidden(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                   positions: torch.Tensor):
+    """Run the block stack over the stacked layer weights. Returns (h,
+    total aux loss); with `remat`, each layer is recomputed in the backward
+    pass (torch.utils.checkpoint, the counterpart of the reference's
+    jax.checkpoint)."""
+    leaves, spec = tree_lib.flatten(params["blocks"])
+
+    def layer(hh, *weights):
+        hh, a, _ = block_forward(cfg, tree_lib.unflatten(spec, weights), hh,
+                                 positions)
+        return hh, a
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(cfg.num_scanned):
+        weights = [x[i] for x in leaves]
+        if cfg.remat and torch.is_grad_enabled():
+            h, a = checkpoint(layer, h, *weights, use_reentrant=False)
+        else:
+            h, a = layer(h, *weights)
+        aux = aux + a
+    return L.rmsnorm(h, params["final_norm"], cfg.norm_eps), aux
+
+
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Mean next-token cross-entropy (attn_mlp has no auxiliary loss)."""
+    """Mean next-token (or frame-target) cross-entropy plus
+    `moe_aux_coeff` times the summed load-balance loss."""
     h, positions, targets = _embed_inputs(cfg, params, batch)
-    h = forward_hidden(cfg, params, h, positions)
-    return L.chunked_softmax_xent(h, params["head"], targets)
+    h, aux = forward_hidden(cfg, params, h, positions)
+    ce = L.chunked_softmax_xent(h, params["head"], targets)
+    return ce + cfg.moe_aux_coeff * aux
+
+
+def logits_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Full (B, S, V) logits — small models / tests only."""
+    h, positions, _ = _embed_inputs(cfg, params, batch)
+    h, _ = forward_hidden(cfg, params, h, positions)
+    return (h @ params["head"]).to(torch.float32)
+
+
+class _Tree(nn.Module):
+    """A dict or NamedTuple of tensors and subtrees as registered
+    Parameters and submodules, named by key or field."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._kind = type(tree)
+        items = tree.items() if isinstance(tree, dict) else zip(
+            tree._fields, tree)
+        self._keys = []
+        for k, v in items:
+            self._keys.append(k)
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v))
+            else:
+                self.add_module(k, _Tree(v))
+
+    def tree(self):
+        vals = [getattr(self, k) for k in self._keys]
+        vals = [v.tree() if isinstance(v, _Tree) else v for v in vals]
+        if self._kind is dict:
+            return dict(zip(self._keys, vals))
+        return self._kind(*vals)
 
 
 class Transformer(nn.Module):
-    """The attn_mlp decoder as an nn.Module over a parameter tree in the
-    reference's layout (stacked block weights); `params()` returns that
-    tree of its Parameters, `forward(batch)` the loss."""
+    """The model as an nn.Module over a parameter tree in the reference's
+    layout (stacked block weights, NamedTuple subtrees); `params()` returns
+    that tree of its Parameters, `forward(batch)` the loss."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        _require_attn_mlp(cfg)
         self.cfg = cfg
-        self.blocks = nn.ParameterDict(
-            {k: nn.Parameter(v) for k, v in params["blocks"].items()})
+        self.blocks = _Tree(params["blocks"])
         self.final_norm = nn.Parameter(params["final_norm"])
-        self.embed = nn.Parameter(params["embed"])
+        self.embed = (nn.Parameter(params["embed"]) if "embed" in params
+                      else None)
         self.head = nn.Parameter(params["head"])
 
     def params(self) -> dict:
-        return {"blocks": dict(self.blocks.items()),
-                "embed": self.embed, "final_norm": self.final_norm,
-                "head": self.head}
+        out = {"blocks": self.blocks.tree(), "final_norm": self.final_norm,
+               "head": self.head}
+        if self.embed is not None:
+            out["embed"] = self.embed
+        return out
 
     def forward(self, batch: dict) -> torch.Tensor:
         return loss_fn(self.cfg, self.params(), batch)

@@ -123,6 +123,18 @@ def test_cuda_quant_decode_attention_matches_plain(cuda, bits, dh, c, g):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", C.BITS)
+@pytest.mark.parametrize("dh,g", C.ATTN_FAMILY_SHAPES)
+@pytest.mark.parametrize("c", C.ATTN_C)
+def test_cuda_quant_decode_attention_family_groups_match_plain(cuda, bits,
+                                                               dh, g, c):
+    """The group sizes hymba (G 5, dh 64) and mixtral (G 6, dh 128) serve
+    at: G not a power of two, on the warp-resident kernel."""
+    C.check_quant_decode_attention(bits, dh, c, g, cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bits,dh,g", [
     (bits, dh, g) for bits in C.BITS for dh, g in C.ATTN_TILE_SHAPES
     if dh * bits % 32 == 0])

@@ -175,9 +175,17 @@ def test_serve_step_refuses_a_mesh_and_other_blocks(base):
         TS.make_serve_step(tcfg, "meta")(tparams, st, tok)
     with pytest.raises(NotImplementedError, match="one device"):
         TS.make_serve_step(tcfg, mesh=("cuda:0", "cuda:1"))
-    moe = dataclasses.replace(tcfg, block="attn_moe")
-    with pytest.raises(NotImplementedError, match="attn_moe"):
-        TD.init_decode_state(moe, 1, 8, device="cpu")
+    # the other blocks decode too: an attn_moe state has the reference's
+    # leaves, shapes and dtypes (the KV cache only; experts are stateless)
+    moe = dataclasses.replace(tcfg, block="attn_moe", num_experts=4)
+    jmoe = dataclasses.replace(_configs(base, None)[0], block="attn_moe",
+                               num_experts=4)
+    tstate = TD.init_decode_state(moe, 1, 8, device="cpu")
+    jstate = JD.init_decode_state(jmoe, 1, 8)
+    assert set(tstate.caches) == set(jstate.caches) == {"k", "v"}
+    for name, jx in jstate.caches.items():
+        assert tuple(tstate.caches[name].shape) == jx.shape, name
+        assert tstate.caches[name].numpy().dtype == jx.dtype, name
     state_bytes = TD.state_bytes(TD.init_decode_state(
         dataclasses.replace(tcfg, kv_quant_bits=8), 2, 16, device="cpu"))
     # 2 layers × 2 slots × 16 positions × 2 heads × (8 words + 1 scale) ×
