@@ -239,9 +239,10 @@ def _sparsify_then_embed(budget, *, mode: str = "topk", bits: int = 4,
 @register("dsc")
 def _dsc(budget, *, dithered: bool = False, embedding: str = "near_democratic",
          seed: int = 0) -> TreeCodec:
-    """One Hadamard frame per leaf (N the next power of two of its size);
-    on the card its FWHT refuses N > 8192, so dsc runs there only on
-    leaves of at most 8192 coordinates."""
+    """One Hadamard frame per leaf (N the next power of two of its size),
+    whose encode (Sᵀ y) and decode (S x) run one FWHT of N each: on the
+    card above N = 8192 the FWHT's passes (a full-width yi-6b leaf takes
+    N up to 2^28)."""
     codec_cache: dict = {}
 
     def codec_for(leaf_idx: int, n: int, device) -> Codec:

@@ -36,7 +36,12 @@
 // it a block holds max(1, 2048/n) rows in shared memory, runs
 // ndsc::fwht_tile there, takes the row maximum with one shared atomicMax
 // per warp after a redux.sync, and packs whole words per thread with
-// ndsc::quantize_pack_word (which quantpack.cu's quantize_pack shares).
+// ndsc::quantize_pack_word (which quantpack.cu's row kernel shares).
+// N > 8192 (one row past a block's shared memory) does not come here:
+// repro_torch/kernels/quantencode.py runs it as passes, fwht.cu's
+// ndsc_fwht_pass with the sign flip and the row maximum folded in, then
+// quantpack.cu's flat quantize kernel with the dither and the mask (and
+// for the residual its flat unpack kernel and the passes again).
 #include <cuda_bf16.h>
 
 #include "ndsc_common.cuh"

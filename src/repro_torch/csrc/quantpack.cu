@@ -7,17 +7,31 @@
 // Replaces: src/repro/kernels/quantpack.py, quantize_pack_pallas
 // (pl.pallas_call body _quantpack_kernel) and unpack_dequant_pallas (body
 // _unpackdequant_kernel). Called through repro_torch.kernels.ops:
-// quantize_pack from the KV-cache encode (models/kvquant.encode_entry),
-// unpack_dequant in every NDSC decode.
+// quantize_pack from the KV-cache encode (models/kvquant.encode_entry) and
+// RATQ, unpack_dequant in every NDSC decode; both also inside the encoders
+// above N = 8192 (kernels/quantencode.py).
 //
 // Bound on an H100: bytes. Pack reads 4 B of f32 per coordinate (plus one
 // scale per row) and writes R/8 B; unpack the reverse. Each does a handful
 // of integer and float operations per coordinate.
-// Design, pack: one thread per output word, in a grid-stride loop over all
-// rows * words (64-bit indices, no cap on N), so word stores are coalesced
-// and the k inputs of a word are k neighbouring floats. The quantizer is
-// ndsc::quantize_pack_word, built on ndsc::quantize_code as the fused
-// encoder's is.
+// Design, pack: the input is one flat stream of float4s. Where wpr is a
+// power of two (every call of the port's paths but the 12288-wide sweep
+// row), thread f loads float4 f, neighbouring threads on neighbouring
+// addresses, quantizes its 4 values with ndsc::quantize_code (bitwise
+// ref.quantize_pack, as the fused encoder's) into its bit field of word
+// f / F4 (F4 = 8/R float4s a word), and the F4 lanes of a word OR their
+// fields together with __shfl_xor_sync (none at R 8); the first of them
+// stores the word, so a warp writes 16R contiguous bytes. R is a template
+// argument and the row is the word index shifted by log2(wpr), so there is
+// no division. The optional dither (x + d * scale, as __fadd_rn(x,
+// __fmul_rn(d, scale))), row mask (masked rows emit zero words) and masked
+// scale output (scale * mask) make the same kernel the tail of the encoders
+// above N = 8192 (quantencode.py). Other widths take a row kernel: one
+// thread per output word, its row by a division (no dither or mask).
+// The first design (one thread per word everywhere, k scalar loads of
+// neighbouring floats, so a warp's loads touched up to 32 lines at once,
+// a 64-bit division per word, and a grid capped at 2^20 blocks) ran at
+// 0.58-0.61 of its bound at the training shapes (PERF.md).
 // Design, unpack: a write stream, 4 B out for every R/8 B in. Where rows
 // are whole (n == wpr * 32/R, every decode of the codec) and wpr is a
 // power of two (every wpr of the port's paths: the chunk is one, and so is
@@ -36,18 +50,71 @@
 
 namespace {
 
-__global__ void quantize_pack_kernel(const float* __restrict__ x,
+// Row path: one thread per output word, its row by a division.
+__global__ void quantize_rows_kernel(const float* __restrict__ x,
                                      const float* __restrict__ scale,
                                      int32_t* __restrict__ words,
                                      int64_t total_words, int wpr, int bits) {
   const int k = 32 / bits;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t wi = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-       wi < total_words; wi += stride) {
-    words[wi] = static_cast<int32_t>(
-        ndsc::quantize_pack_word(x + wi * k, scale[wi / wpr], bits));
+  const int64_t wi =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (wi >= total_words) return;
+  words[wi] = static_cast<int32_t>(
+      ndsc::quantize_pack_word(x + wi * k, scale[wi / wpr], bits));
+}
+
+// Flat path: thread f quantizes float4 f of x, codes 4*(f % F4) .. +3 of
+// word f / F4 (F4 = 8/R float4s a word), against the scale of row
+// (word >> wpr_shift). dither, mask and scale_out may be null.
+template <int BITS>
+__global__ void quantize_flat_kernel(const float4* __restrict__ x,
+                                     const float* __restrict__ scale,
+                                     const float4* __restrict__ dither,
+                                     const float* __restrict__ mask,
+                                     uint32_t* __restrict__ words,
+                                     float* __restrict__ scale_out,
+                                     int64_t total_f4, int wpr_shift) {
+  constexpr int kLog2F4 = BITS == 1 ? 3 : BITS == 2 ? 2 : BITS == 4 ? 1 : 0;
+  constexpr int kF4 = 1 << kLog2F4;
+  const int64_t f =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool valid = f < total_f4;
+  const int64_t wi = f >> kLog2F4;
+  const int64_t row = wi >> wpr_shift;
+  float s = 0.0f;
+  unsigned w = 0;
+  if (valid) {
+    s = __ldg(scale + row);
+    float4 v = x[f];
+    if (dither != nullptr) {
+      const float4 d = dither[f];
+      v.x = __fadd_rn(v.x, __fmul_rn(d.x, s));
+      v.y = __fadd_rn(v.y, __fmul_rn(d.y, s));
+      v.z = __fadd_rn(v.z, __fmul_rn(d.z, s));
+      v.w = __fadd_rn(v.w, __fmul_rn(d.w, s));
+    }
+    const float denom = fmaxf(s, FLT_MIN);
+    const int sh = static_cast<int>(f & (kF4 - 1)) * 4 * BITS;
+    w = ndsc::quantize_code(v.x, denom, BITS) << sh |
+        ndsc::quantize_code(v.y, denom, BITS) << (sh + BITS) |
+        ndsc::quantize_code(v.z, denom, BITS) << (sh + 2 * BITS) |
+        ndsc::quantize_code(v.w, denom, BITS) << (sh + 3 * BITS);
   }
+  // the F4 lanes of a word hold disjoint bit fields; every lane of the
+  // warp takes part in the shuffles, valid or not
+#pragma unroll
+  for (int o = 1; o < kF4; o <<= 1)
+    w |= __shfl_xor_sync(0xffffffffu, w, o);
+  if (!valid || (f & (kF4 - 1)) != 0) return;
+  float mk = 1.0f;
+  if (mask != nullptr) {
+    mk = __ldg(mask + row);
+    // the int32 product with the mask, wrapping as ref.encode's does
+    w *= static_cast<unsigned>(static_cast<int32_t>(mk));
+  }
+  words[wi] = w;
+  if (scale_out != nullptr && (wi & ((int64_t(1) << wpr_shift) - 1)) == 0)
+    scale_out[row] = mask != nullptr ? __fmul_rn(s, mk) : s;
 }
 
 // Flat path: thread f stores float4 f of the output, codes
@@ -109,6 +176,18 @@ void launch_flat(const int32_t* words, const float* scale, float* out,
       reinterpret_cast<float4*>(out), total_f4, wpr_shift);
 }
 
+template <int BITS>
+void launch_quantize_flat(const float* x, const float* scale,
+                          const float* dither, const float* mask,
+                          int32_t* words, float* scale_out, int64_t total_f4,
+                          int wpr_shift, unsigned blocks,
+                          cudaStream_t stream) {
+  quantize_flat_kernel<BITS><<<blocks, ndsc::kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(x), scale,
+      reinterpret_cast<const float4*>(dither), mask,
+      reinterpret_cast<uint32_t*>(words), scale_out, total_f4, wpr_shift);
+}
+
 bool valid_bits(int bits) {
   return bits == 1 || bits == 2 || bits == 4 || bits == 8;
 }
@@ -116,20 +195,49 @@ bool valid_bits(int bits) {
 }  // namespace
 
 // x: (rows, n) float32; scale: (rows,) float32; words: (rows, n*bits/32)
-// int32; n a positive multiple of 32/bits. Returns cudaGetLastError().
+// int32; n a positive multiple of 32/bits. Where wpr = n*bits/32 is a
+// power of two (the flat path) x and dither are 16-byte aligned, and the
+// optional dither (rows, n), mask (rows,) and scale_out (rows,) apply;
+// other widths take none of them. Returns cudaGetLastError().
 extern "C" int ndsc_quantize_pack(const float* x, const float* scale,
-                                  int32_t* words, int64_t rows, int n,
-                                  int bits, cudaStream_t stream) {
+                                  const float* dither, const float* mask,
+                                  int32_t* words, float* scale_out,
+                                  int64_t rows, int n, int bits,
+                                  cudaStream_t stream) {
   if (!valid_bits(bits)) return cudaErrorInvalidValue;
   const int k = 32 / bits;
   if (n <= 0 || n % k) return cudaErrorInvalidValue;
   const int wpr = n / k;
   const int64_t total = rows * wpr;
-  if (total == 0) return cudaSuccess;
-  int64_t blocks = (total + ndsc::kThreads - 1) / ndsc::kThreads;
-  if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride beyond this
-  quantize_pack_kernel<<<static_cast<unsigned>(blocks), ndsc::kThreads, 0,
-                         stream>>>(x, scale, words, total, wpr, bits);
+  if (!ndsc::is_pow2(wpr)) {
+    if (dither != nullptr || mask != nullptr || scale_out != nullptr)
+      return cudaErrorInvalidValue;
+    if (total == 0) return cudaSuccess;
+    const int64_t blocks = (total + ndsc::kThreads - 1) / ndsc::kThreads;
+    if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+    quantize_rows_kernel<<<static_cast<unsigned>(blocks), ndsc::kThreads, 0,
+                           stream>>>(x, scale, words, total, wpr, bits);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(dither) % 16)
+    return cudaErrorMisalignedAddress;
+  const int64_t total_f4 = rows * n / 4;
+  if (total_f4 == 0) return cudaSuccess;
+  const int64_t blocks = (total_f4 + ndsc::kThreads - 1) / ndsc::kThreads;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  const unsigned b = static_cast<unsigned>(blocks);
+  const int sh = ndsc::log2_int(wpr);
+  switch (bits) {
+    case 1: launch_quantize_flat<1>(x, scale, dither, mask, words, scale_out,
+                                    total_f4, sh, b, stream); break;
+    case 2: launch_quantize_flat<2>(x, scale, dither, mask, words, scale_out,
+                                    total_f4, sh, b, stream); break;
+    case 4: launch_quantize_flat<4>(x, scale, dither, mask, words, scale_out,
+                                    total_f4, sh, b, stream); break;
+    default: launch_quantize_flat<8>(x, scale, dither, mask, words,
+                                     scale_out, total_f4, sh, b, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

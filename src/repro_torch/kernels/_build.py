@@ -32,11 +32,15 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 # library: {exported C function: argtypes}
 _SIGNATURES = {
-    "fwht": {"ndsc_fwht": [_P, _P, _I64, _I, _F, _P]},
+    "fwht": {
+        "ndsc_fwht": [_P, _P, _I64, _I, _F, _P],
+        "ndsc_fwht_pass": [_P, _P, _P, _P, _I, _F, _P, _P, _P, _I, _I64, _I,
+                           _I, _I, _I, _I, _F, _P],
+    },
     "quantpack": {
         "ndsc_unpack_flat": [_P, _P, _P, _I64, _I, _I, _P],
         "ndsc_unpack_rows": [_P, _P, _P, _I64, _I, _I, _I, _P],
-        "ndsc_quantize_pack": [_P, _P, _P, _I64, _I, _I, _P],
+        "ndsc_quantize_pack": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     },
     "quantencode": {
         "ndsc_encode": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _F, _I,

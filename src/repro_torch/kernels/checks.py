@@ -1,5 +1,6 @@
 """Kernel-vs-plain checks of the codec and serving kernels, and the sweep
-grids.
+grids (the codec grid below and above N = 8192, where the FWHT and the
+encoders run as passes).
 
 `chip_smoke.py` and `tests/test_torch_cuda.py` hold the CUDA kernels
 against their plain versions with these same inputs and grids. On a CPU
@@ -24,7 +25,16 @@ FWHT_SMALL_N = (1, 2, 4, 8, 16)
 # rows that leave a warp item or a block partly filled
 CODEC_ROWS = (1, 37, 1031)
 CODEC_MODES = ("det", "dither", "mask", "rescale")
+# N of the FWHT's passes and the encoders above 8192: two passes with a
+# last pass of one and two stages, and 2^20 (13 + 7), at rows LARGE_ROWS
+LARGE_N = (16384, 32768, 2 ** 20)
+LARGE_ROWS = (1, 37)
+# the FWHT alone on one row of the dsc codec's largest frames (yi-6b's
+# leaves): 2^23 (two passes), 2^26 and 2^28 (three)
+FWHT_HUGE_N = (2 ** 23, 2 ** 26, 2 ** 28)
 PACK_N = (32, 128, 256, 8192, 12288)
+# quantize_pack rows: one, a block partly filled, several blocks
+PACK_ROWS = (1, 37, 1031)
 # unpack_dequant beyond the encoder's payloads: (n, N), n values kept of
 # rows of N = wpr·32/bits codes. Whole rows at a power-of-two wpr (the
 # flat path); whole rows at wpr = 3·2^j (96, 12288) and trimmed rows by
@@ -87,6 +97,17 @@ def check_fwht(n, rows, dev) -> None:
         raise AssertionError(f"fwht differs: n={n} rows={rows}")
 
 
+def check_fwht_huge(n, dev) -> None:
+    """The FWHT of one row of n (the passes at a dsc frame's size) bitwise
+    with its plain version (at 2^28 a row is 1 GiB; the plain version
+    holds a few such at once)."""
+    x = torch.randn(1, n, generator=torch.Generator(device=dev)
+                    .manual_seed(n), device=dev)
+    got = ops.fwht(x)
+    if not torch.equal(got, ref.fwht(x)):
+        raise AssertionError(f"fwht differs: n={n}")
+
+
 def check_codec(n, bits, mode, rows, dev) -> None:
     """encode, encode_ef (f32 and bf16 residuals), unpack_dequant and the
     FWHT bitwise with their plain versions; mode is one of CODEC_MODES
@@ -145,30 +166,38 @@ def check_unpack(bits, n, full_n, rows, dev) -> None:
 
 def pack_inputs(rows, n, seed, dev):
     """x (rows, n) and scales above and below the rows' maxima (so the clip
-    acts), with row 3 at scale 0 (the FLT_MIN guard)."""
+    acts); the last row's maximum sits in its last lane, at the scale (the
+    top code in the word's top bit field); with rows > 3 row 3 has scale 0
+    (the FLT_MIN guard)."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     x = torch.randn(rows, n, generator=g, device=dev)
     scale = x.abs().amax(-1, keepdim=True) * (
         0.5 + torch.rand(rows, 1, generator=g, device=dev))
-    scale[3] = 0.0
+    x[-1, -1] = 8.0
+    scale[-1] = 8.0
+    if rows > 3:
+        scale[3] = 0.0
     return x, scale
 
 
-def check_quantize_pack(n, bits, dev) -> None:
-    """Bitwise over 37 rows (they do not fill a block), flat and with lead
-    dims given as expanded views."""
-    rows = 37
-    x, scale = pack_inputs(rows, n, n * 10 + bits, dev)
-    if not torch.equal(ops.quantize_pack(x, scale, bits),
-                       ref.quantize_pack(x, scale, bits)):
-        raise AssertionError(f"quantize_pack differs: bits={bits} n={n}")
-    x3 = x.reshape(rows, 1, n).expand(rows, 2, n)
-    s3 = scale.reshape(rows, 1, 1).expand(rows, 2, 1)
-    if not torch.equal(ops.quantize_pack(x3, s3, bits),
-                       ref.quantize_pack(x3, s3, bits)):
-        raise AssertionError(f"quantize_pack differs on views: bits={bits} "
-                             f"n={n}")
+def check_quantize_pack(n, bits, dev, rows_grid=PACK_ROWS) -> None:
+    """Bitwise over each of `rows_grid` rows (one, a block partly filled,
+    several blocks), flat and with lead dims given as expanded views, and
+    from an unaligned x."""
+    for rows in rows_grid:
+        x, scale = pack_inputs(rows, n, n * 10 + bits + rows, dev)
+        want = ref.quantize_pack(x, scale, bits)
+        for xi in (x, unaligned_copy(x)):
+            if not torch.equal(ops.quantize_pack(xi, scale, bits), want):
+                raise AssertionError(f"quantize_pack differs: bits={bits} "
+                                     f"n={n} rows={rows}")
+        x3 = x.reshape(rows, 1, n).expand(rows, 2, n)
+        s3 = scale.reshape(rows, 1, 1).expand(rows, 2, 1)
+        if not torch.equal(ops.quantize_pack(x3, s3, bits),
+                           ref.quantize_pack(x3, s3, bits)):
+            raise AssertionError(f"quantize_pack differs on views: "
+                                 f"bits={bits} n={n} rows={rows}")
 
 
 def attention_inputs(b, c, kh, g, dh, bits, seed, dev, lens=None):

@@ -2,8 +2,11 @@
 
 Counterpart of `repro.kernels.fwht.fwht_pallas`. The kernel keeps the
 radix-2 butterfly order of `ref.fwht` and its single final multiply, so its
-output is bitwise equal to the plain version. N is a power of 2 ≤ 8192
-(`MAX_N`); larger N raises (not ported yet, see ROADMAP).
+output is bitwise equal to the plain version, for every power of two N.
+Up to `SINGLE_MAX_N` = 8192 one launch does the whole transform; above it
+the stages run in passes, as `fwht_plan` lays them out (`fwht_path`), and
+`run_passes` launches them. The encoders above 8192 (`quantencode.py`)
+run the same passes with their own per-value steps folded in.
 
 The serve path calls it on a few hundred rows at a time, where the host's
 work per call is most of its time, so the launch path keeps that work
@@ -21,7 +24,16 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_N = 8192
+# the largest N of the single-launch kernels; above it the passes run
+SINGLE_MAX_N = 8192
+# the first pass runs the stages h < 2^13 on contiguous blocks of 8192
+FIRST_PASS_STAGES = 13
+# a later pass runs at most 10 stages: a tile of 2^10 strided values by 32
+# contiguous columns, 128 KB of shared memory
+MAX_PASS_STAGES = 10
+# a later pass's tile holds at least 2^13 values: fewer stages, more columns
+MIN_TILE_LOG2 = 13
+MIN_COLS_LOG2 = 5         # 32 floats, a whole 128 B line
 
 
 def f32(v: float) -> float:
@@ -65,23 +77,102 @@ def _check_cuda_f32(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def fwht_plan(log2n: int) -> list:
+    """The passes of the FWHT of N = 2^log2n as (first stage, stages): the
+    stages h = 2^s for s in [first, first + stages), in increasing order.
+    The first pass takes up to 13 stages; the rest are split as evenly as
+    possible into passes of at most 10 (2^28: 13, 8, 7)."""
+    first = min(log2n, FIRST_PASS_STAGES)
+    plan = [(0, first)]
+    rest = log2n - first
+    if rest:
+        n_pass = -(-rest // MAX_PASS_STAGES)
+        base, extra = divmod(rest, n_pass)
+        s = first
+        for i in range(n_pass):
+            k = base + (i < extra)
+            plan.append((s, k))
+            s += k
+    return plan
+
+
+def pass_cols(first: int, stages: int) -> int:
+    """log2 of a pass's tile width W: 1 column in the first pass (its
+    2^stages values are contiguous), else max(32, 2^13 / 2^stages), within
+    the 2^first contiguous values a stage-`first` pair spans."""
+    if first == 0:
+        return 0
+    return min(first, max(MIN_COLS_LOG2, MIN_TILE_LOG2 - stages))
+
+
+def fwht_path(n: int) -> str:
+    """"single" (one launch of the whole transform) for N ≤ 8192, "passes"
+    above; N must be a power of two."""
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"CUDA FWHT needs a power-of-2 N, got {n}")
+    return "single" if n <= SINGLE_MAX_N else "passes"
+
+
+def _ptr(t):
+    """Device pointer of an optional tensor (None → a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
 @functools.cache
 def _kernel():
     return _build.library("fwht").ndsc_fwht
 
 
+@functools.cache
+def _pass_kernel():
+    return _build.library("fwht").ndsc_fwht_pass
+
+
+def run_passes(src: torch.Tensor, work: torch.Tensor, out: torch.Tensor, *,
+               signs_in=None, row_mul=None, rescale=None, signs_out=None,
+               sub_from=None, rowmax=None, round_bf16: bool = False) -> None:
+    """The FWHT of src's rows (N > 8192) by `fwht_plan`'s passes: the first
+    reads src, the middle ones run in place on `work`, the last writes
+    `out` (work and out may be one tensor). Folded in: at the first pass's
+    loads × signs_in, × row_mul[row], ÷ rescale; at the last pass's stores
+    the row maximum of |y| into rowmax, × signs_out, the bf16 rounding
+    and sub_from − y. All tensors are contiguous f32 on one card, the
+    (rows, N) ones and the signs 16-byte aligned; no launch is counted."""
+    n = src.shape[-1]
+    rows = src.numel() // n
+    log2n = n.bit_length() - 1
+    plan = fwht_plan(log2n)
+    fn, stream = _pass_kernel(), _stream(src)
+    for i, (first, stages) in enumerate(plan):
+        head, last = i == 0, i == len(plan) - 1
+        rc = fn(src.data_ptr() if head else work.data_ptr(),
+                out.data_ptr() if last else work.data_ptr(),
+                _ptr(signs_in) if head else None,
+                _ptr(row_mul) if head else None,
+                int(head and rescale is not None), f32(rescale or 1.0),
+                _ptr(signs_out) if last else None,
+                _ptr(sub_from) if last else None,
+                _ptr(rowmax) if last else None, int(last and round_bf16),
+                rows, log2n, first, stages, pass_cols(first, stages),
+                int(last), inv_sqrt(n), stream)
+        _build.check(rc, f"fwht pass {i}")
+
+
 def fwht_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Normalized FWHT along the last axis of a contiguous f32 CUDA tensor."""
+    """Normalized FWHT along the last axis of a contiguous f32 CUDA tensor:
+    one launch up to N = 8192, `fwht_plan`'s passes above (counted as one
+    launch either way)."""
     _check_cuda_f32("x", x)
     n = x.shape[-1]
-    if n & (n - 1) or n > MAX_N:
-        raise ValueError(f"CUDA FWHT needs a power-of-2 N ≤ {MAX_N}, got {n}")
+    path = fwht_path(n)
     x = aligned(x)
     y = torch.empty_like(x)
-    rows = x.numel() // n if n else 0
-    rc = call_on(x, _kernel(), x.data_ptr(), y.data_ptr(), rows, n,
-                 inv_sqrt(n), _stream(x))
-    _build.check(rc, "fwht")
+    if path == "single":
+        rc = call_on(x, _kernel(), x.data_ptr(), y.data_ptr(),
+                     x.numel() // n, n, inv_sqrt(n), _stream(x))
+        _build.check(rc, "fwht")
+    elif x.numel():
+        call_on(x, run_passes, x, y, y)
     fwht_cuda.launches += 1
     return y
 

@@ -2,8 +2,10 @@
 
 A CPU tensor runs the plain PyTorch version (`kernels.ref`); a CUDA tensor
 runs the hand-written kernel, or raises where the kernel refuses the input
-(N > 8192 for the FWHT and the encoders, a dtype it does not take). There
-is no switch and no fallback: unlike `repro.kernels.ops`, nothing here
+(a dtype it does not take, an N that is not a power of two). The FWHT and
+the encoders take every power-of-two N on the card: one launch up to 8192,
+hand-written passes above (`kernels.fwht.fwht_plan`). There is no switch
+and no fallback: unlike `repro.kernels.ops`, nothing here
 quietly swaps in the reference on the accelerator. All six TPU kernels have
 a CUDA counterpart; each CUDA wrapper counts its launches
 (`launch_counts`).

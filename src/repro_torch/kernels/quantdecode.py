@@ -26,9 +26,10 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fwht import (MAX_N, _check_cuda_f32, _stream,
-                                      call_on, inv_sqrt)
+from repro_torch.kernels.fwht import (_check_cuda_f32, _stream, call_on,
+                                      inv_sqrt)
 
+MAX_DH = 8192                 # the largest head width the kernels take
 TILE_FLOATS = 8192            # dequantized K (or V) floats per tile
 MAX_TILE = 64                 # positions per tile
 MAX_SMEM_BYTES = 232448       # an H100 block's dynamic shared memory
@@ -114,8 +115,8 @@ def quant_decode_attention_cuda(q: torch.Tensor, kw: torch.Tensor,
     if q.dim() != 4:
         raise ValueError(f"q must be (B, K, G, dh), got {tuple(q.shape)}")
     b, kh, g, dh = q.shape
-    if dh & (dh - 1) or not 0 < dh <= MAX_N or (dh * bits) % 32:
-        raise ValueError(f"dh={dh} must be a power of 2 ≤ {MAX_N} with "
+    if dh & (dh - 1) or not 0 < dh <= MAX_DH or (dh * bits) % 32:
+        raise ValueError(f"dh={dh} must be a power of 2 ≤ {MAX_DH} with "
                          f"dh·bits/32 whole (bits={bits})")
     for name, t in (("kw", kw), ("vw", vw), ("kv_len", kv_len)):
         if not t.is_cuda or t.dtype != torch.int32 or not t.is_contiguous():

@@ -1,12 +1,21 @@
-"""CUDA kernel: the fused NDSC encoder (`csrc/quantencode.cu`).
+"""CUDA kernels: the NDSC encoder (`csrc/quantencode.cu`, and above
+N = 8192 a sequence of passes).
 
 Counterpart of `repro.kernels.quantencode.encode_pallas` and
 `encode_ef_pallas`: sign flip → FWHT → ℓ∞ scale → (dither) → quantize →
-int32 pack → (row mask), and for `encode_ef` the in-tile decode of its own
-payload and the residual u − D(E(u)). Both wrappers launch the same CUDA
-kernel; each keeps its own launch count. The payload (words, scale) is
-bitwise equal to `ref.encode`; the residual to `ref.encode_ef` as well,
-since every float step is a round-to-nearest intrinsic.
+int32 pack → (row mask), and for `encode_ef` the decode of its own payload
+and the residual u − D(E(u)). Up to N = 8192 both wrappers launch the one
+fused kernel of `quantencode.cu`; above it (`encode_path`) they launch
+hand-written passes: the FWHT's passes (`fwht.run_passes`) with the signs
+folded into the first one's loads and the row maximum into the last one's
+stores, then the flat quantize_pack kernel with the dither and the mask,
+and for `encode_ef` the flat unpack_dequant kernel and the FWHT's passes
+again with the mask and rescale folded into the first loads and the
+signs, the `residual_dtype` rounding and the subtract into the last
+stores. Each wrapper counts one launch per call under its own name. The
+payload (words, scale) is bitwise equal to `ref.encode`; the residual to
+`ref.encode_ef` as well, since every float step is a round-to-nearest
+intrinsic.
 
 The dither and the keep mask are drawn outside the kernel (in
 `dist.gradcomp`) and passed in, so a kernel can never change a payload.
@@ -18,15 +27,21 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fwht import (MAX_N, _check_cuda_f32, _stream,
-                                      aligned, call_on, f32, inv_sqrt)
+from repro_torch.kernels.fwht import (SINGLE_MAX_N, _check_cuda_f32, _ptr,
+                                      _stream, aligned, call_on, f32,
+                                      inv_sqrt, run_passes)
+from repro_torch.kernels.quantpack import _quantize_pack, _unpack_flat
 
 MIN_N = 32
 
 
-def _ptr(t):
-    """Device pointer of an optional tensor (None → a null pointer)."""
-    return None if t is None else t.data_ptr()
+def encode_path(n: int) -> str:
+    """"fused" (the one kernel of quantencode.cu) for 32 ≤ N ≤ 8192,
+    "passes" above; N must be a power of two."""
+    if n & (n - 1) or n < MIN_N:
+        raise ValueError(
+            f"CUDA encode needs a power-of-2 N ≥ {MIN_N}, got {n}")
+    return "fused" if n <= SINGLE_MAX_N else "passes"
 
 
 @functools.cache
@@ -41,9 +56,7 @@ def _launch(chunks, signs, bits, dither, mask, rescale, residual_dtype,
     n = chunks.shape[-1]
     if bits not in (1, 2, 4, 8):
         raise ValueError(f"bits must be in {{1,2,4,8}}, got {bits}")
-    if n & (n - 1) or not MIN_N <= n <= MAX_N:
-        raise ValueError(
-            f"CUDA encode needs a power-of-2 N in [{MIN_N}, {MAX_N}], got {n}")
+    path = encode_path(n)
     if tuple(signs.shape) != (n,):
         raise ValueError(f"signs shape {tuple(signs.shape)} != ({n},)")
     lead = tuple(chunks.shape[:-1])
@@ -67,13 +80,44 @@ def _launch(chunks, signs, bits, dither, mask, rescale, residual_dtype,
     scale = torch.empty(lead + (1,), dtype=torch.float32, device=dev)
     resid = torch.empty_like(chunks) if ef else None
     rows = chunks.numel() // n
+    bf16 = residual_dtype == torch.bfloat16
+    if path == "passes":
+        if rows:
+            call_on(chunks, _passes, chunks, signs, bits, dither, mask,
+                    rescale, bf16, words, scale, resid)
+        return words, scale, resid
     rc = call_on(chunks, _kernel(), chunks.data_ptr(), signs.data_ptr(),
                  _ptr(dither), _ptr(mask), words.data_ptr(), scale.data_ptr(),
                  _ptr(resid), rows, n, bits, inv_sqrt(n),
-                 int(rescale is not None), f32(rescale or 1.0),
-                 int(residual_dtype == torch.bfloat16), _stream(chunks))
+                 int(rescale is not None), f32(rescale or 1.0), int(bf16),
+                 _stream(chunks))
     _build.check(rc, "encode_ef" if ef else "encode")
     return words, scale, resid
+
+
+def _passes(chunks, signs, bits, dither, mask, rescale, bf16: bool, words,
+            scale, resid) -> None:
+    """The encoder above N = 8192 into words, scale (and resid). Scratch:
+    the embedded rows e (reused for the EF decode) and the unmasked row
+    maxima."""
+    n = chunks.shape[-1]
+    rows = chunks.numel() // n
+    e = torch.empty_like(chunks)
+    rowmax = torch.empty(rows, dtype=torch.float32, device=chunks.device)
+    stream = _stream(chunks)
+    run_passes(chunks, e, e, signs_in=signs, rowmax=rowmax)
+    rc = _quantize_pack()(e.data_ptr(), rowmax.data_ptr(), _ptr(dither),
+                          _ptr(mask), words.data_ptr(), scale.data_ptr(),
+                          rows, n, bits, stream)
+    _build.check(rc, "encode: quantize pass")
+    if resid is None:
+        return
+    rc = _unpack_flat()(words.data_ptr(), scale.data_ptr(), e.data_ptr(),
+                        rows, words.shape[-1], bits, stream)
+    _build.check(rc, "encode_ef: unpack pass")
+    run_passes(e, e, resid, row_mul=mask,
+               rescale=rescale if mask is not None else None,
+               signs_out=signs, sub_from=chunks, round_bf16=bf16)
 
 
 def encode_cuda(chunks: torch.Tensor, signs: torch.Tensor, bits: int, *,

@@ -4,9 +4,11 @@ dequantize, of NDSC words (`csrc/quantpack.cu`).
 Counterparts of `repro.kernels.quantpack.quantize_pack_pallas` and
 `unpack_dequant_pallas`; bitwise equal to `ref.quantize_pack` and
 `ref.unpack_dequant`. `quantize_pack` has no cap on N (the TPU kernel has
-none either); N must be a multiple of 32/bits. `unpack_dequant` streams
-whole rows flat where wpr is a power of two (`unpack_path`), other rows
-row by row.
+none either); N must be a multiple of 32/bits. Both stream their rows as
+one flat sequence of float4s where wpr is a power of two (`pack_path`,
+`unpack_path`), other rows row by row. The encoders above N = 8192
+(`quantencode.py`) run the same two kernels, quantize_pack with a dither
+and a row mask, without counting their launches here.
 
 Both wrappers take the FWHT's launch path (`kernels/fwht.py`): the ctypes
 functions are cached, the device guard is entered only when the tensor is
@@ -19,7 +21,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fwht import _check_cuda_f32, _stream, call_on
+from repro_torch.kernels.fwht import (_check_cuda_f32, _stream, aligned,
+                                      call_on)
 
 
 def _check_bits(bits: int) -> None:
@@ -40,6 +43,14 @@ def _unpack_rows():
 @functools.cache
 def _quantize_pack():
     return _build.library("quantpack").ndsc_quantize_pack
+
+
+def pack_path(n: int, bits: int) -> str:
+    """"flat" where a row's wpr = N·bits/32 words is a power of two (every
+    call of the port's paths): a float4 of x per thread, the row by a
+    shift. "rows" otherwise (no dither or mask there)."""
+    wpr = n * bits // 32
+    return "flat" if wpr & (wpr - 1) == 0 else "rows"
 
 
 def unpack_path(n: int, wpr: int, bits: int) -> str:
@@ -98,8 +109,10 @@ def quantize_pack_cuda(x: torch.Tensor, scale: torch.Tensor,
     if tuple(scale.shape) != lead + (1,):
         raise ValueError(f"scale shape {tuple(scale.shape)} != {lead + (1,)}")
     words = torch.empty(lead + (n // k,), dtype=torch.int32, device=x.device)
-    rc = call_on(x, _quantize_pack(), x.data_ptr(),
-                 scale.data_ptr(), words.data_ptr(), x.numel() // n, n, bits,
+    if pack_path(n, bits) == "flat":
+        x = aligned(x)
+    rc = call_on(x, _quantize_pack(), x.data_ptr(), scale.data_ptr(), None,
+                 None, words.data_ptr(), None, x.numel() // n, n, bits,
                  _stream(x))
     _build.check(rc, "quantize_pack")
     quantize_pack_cuda.launches += 1

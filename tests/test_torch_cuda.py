@@ -8,7 +8,8 @@ machine without them (the repo's conftest imports JAX; skip it there):
 
 Payloads (words, scale bits), the EF residual in f32 and bf16, the FWHT,
 unpack_dequant (also on whole-range words, unaligned, trimmed) and
-quantize_pack must be bitwise equal to the plain versions; the KV-cache
+quantize_pack must be bitwise equal to the plain versions, below and above
+N = 8192 (the passes, up to one row of 2^28); the KV-cache
 decode attention within rtol = atol = 2e-4, the bound the JAX package
 holds its Pallas kernel to (exponentials and sums run in another
 order). The codecs' paths (RATQ's rung, `ops.rotate`, lane-stacked
@@ -63,8 +64,11 @@ def test_cuda_launch_counts_and_refusals(cuda):
     x = torch.randn(4, 64, device=cuda)
     ops.unrotate(ops.fwht(x), torch.ones(64, device=cuda))
     assert ops.launch_counts()["fwht"] == 2
-    with pytest.raises(ValueError, match="8192"):
-        ops.fwht(torch.zeros(2, 16384, device=cuda))
+    # above 8192 the passes run (one count per call), non-powers of 2 raise
+    assert ops.fwht(torch.zeros(2, 16384, device=cuda)).shape == (2, 16384)
+    assert ops.launch_counts()["fwht"] == 3
+    with pytest.raises(ValueError, match="power-of-2"):
+        ops.fwht(torch.zeros(2, 12288, device=cuda))
     with pytest.raises(ValueError):
         ops.encode(torch.zeros(2, 64, device=cuda, dtype=torch.float64),
                    torch.ones(64, device=cuda), 4)
@@ -104,9 +108,42 @@ def test_cuda_unpack_dequant_matches_plain(cuda, bits, n, full_n, rows):
 @pytest.mark.parametrize("bits", C.BITS)
 @pytest.mark.parametrize("n", C.PACK_N)
 def test_cuda_quantize_pack_matches_plain(cuda, bits, n):
-    """Bitwise, over rows that do not fill a block, scales above and below
-    the rows' maxima (so the clip acts) and a zero scale (the tiny guard)."""
+    """Bitwise, over one row, rows that do not fill a block and several
+    blocks, scales above and below the rows' maxima (so the clip acts), a
+    zero scale (the tiny guard) and a row whose maximum sits in its last
+    lane, from aligned and unaligned x: the flat float4 stream, and the row
+    kernel at 12288."""
     C.check_quantize_pack(n, bits, cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", C.LARGE_ROWS)
+@pytest.mark.parametrize("bits", C.BITS)
+@pytest.mark.parametrize("n", C.LARGE_N)
+@pytest.mark.parametrize("mode", C.CODEC_MODES)
+def test_cuda_large_n_kernels_match_plain(cuda, bits, n, mode, rows):
+    """Above N = 8192: the FWHT's passes and the encoders' passes (encode,
+    encode_ef with f32 and bf16 residuals) bitwise, with the check_codec
+    grid's special rows; in det mode also from unaligned inputs."""
+    C.check_codec(n, bits, mode, rows, cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", C.LARGE_ROWS)
+@pytest.mark.parametrize("n", C.LARGE_N)
+def test_cuda_large_n_fwht_matches_plain(cuda, n, rows):
+    C.check_fwht(n, rows, cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", C.FWHT_HUGE_N)
+def test_cuda_fwht_of_a_dsc_frame_matches_plain(cuda, n):
+    """One row of 2^23, 2^26 and 2^28 (1 GiB): the dsc codec's frames on
+    a full-width yi-6b."""
+    C.check_fwht_huge(n, cuda)
     torch.cuda.synchronize()
 
 
