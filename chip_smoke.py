@@ -18,9 +18,14 @@ prints its seconds):
         over the whole int32 range, aligned and not, over bits × rows ×
         (n, N) {whole rows of 32, 256, 8192 (the flat path); whole rows
         of 96, 12288 (a wpr not a power of two) and 255, 128 and 1 of 256
-        or 32 (trimmed rows), the row path};
-     b. quantize_pack (bitwise) over bits × N {32, 128, 256, 8192, 12288},
-        and quant_decode_attention (within 2e-4) over bits × dh {32, 64, 128, 256}
+        or 32 (trimmed rows), the row path}; above N = 8192 (the FWHT's
+        and the encoders' passes) the codec kernels and the FWHT the same
+        way over bits × N {16384, 32768, 2^20} × the four modes × rows
+        {1, 37};
+     b. quantize_pack (bitwise) over bits × N {32, 128, 256, 8192, 12288}
+        × rows {1, 37, 1031}, with a zero scale and a row whose maximum
+        sits in its last lane, from aligned and unaligned x (the flat
+        float4 stream; the row kernel at 12288), and quant_decode_attention (within 2e-4) over bits × dh {32, 64, 128, 256}
         × C {1, 100, 512, 1000, 4096, 4097} × G {1, 8} with kv_len {0, 1,
         C, ragged} (so one split, several, a ragged last one and splits
         wholly past kv_len) and packed words over the whole int32 range,
@@ -45,12 +50,24 @@ prints its seconds):
      (the sweep grids and inputs of a and b come from
      repro_torch.kernels.checks,
      which tests/test_torch_cuda.py shares);
+     f. above N = 8192: the FWHT (bitwise, with its pass count and bound)
+        on one row of 2^23, 2^26 and 2^28 (the dsc codec's frames of
+        yi-6b; no library time: H does not fit) and at (4096, 16384) and
+        (2048, 32768) beside a dense x @ H (H 1 GiB and 4 GiB); encode_ef
+        and the dithered, masked encode at chunk 16384 on the 1-layer
+        yi-6b tree's leaves (phase 5b's shapes), checked bitwise, timed
+        and bounded, with their launches per tree;
   4. train yi-6b at full width (d_model 4096, 32/4 heads, d_ff 11008,
      vocab 64000) cut to 4 of its 32 layers: 3 steps at the launcher's
      defaults (batch 8, seq 128, R = 4, allgather_packed, error feedback);
      encode_ef, unpack_dequant and fwht must launch 12 times per step;
   5. 2 more steps with --dithered --keep-fraction 0.5 at 1 layer, which
      runs the plain encode kernel with its dither and mask;
+  5b. 2 steps at 1 layer with chunk 16384 (R 4, allgather_packed, EF):
+     encode_ef, unpack_dequant and fwht (all through their passes) must
+     launch 12 times per step; finite loss and params; the wq leaf's
+     words, scales and EF residual (first and last 64 chunks) bitwise its
+     CPU encode;
   6. the reduced yi-6b for 2 steps on the card and on the CPU from the same
      weights and tokens: losses and parameters must agree;
   7. serve yi-6b at full width and all 32 layers through the 8-bit NDSC KV
@@ -81,12 +98,17 @@ prints its seconds):
      FWHT launches (> 0 in a, c, d) and seconds of each sub-phase;
  10. codecs and federation (repro_torch.codecs, repro_torch.fed): a. each
      wire codec (ndsc R 2 and R 0.5 with exact keep, ndsc's encode_ef,
-     ratq R 2, sparsify_then_embed top-k and rand-k at R 1, 4 bits) on the
+     ratq R 2, sparsify_then_embed top-k and rand-k at R 1, 4 bits, dsc
+     R 2 and R 0.5 (a Hadamard frame per leaf, 11 of 12 leaves over N 8192,
+     up to 2^28), ndsc R 2 at chunk 16384) on the
      parameter tree of yi-6b at full width cut to 4 layers (12 leaves,
      1,216,385,024 seeded values): encode, decode and encode_ef ms (CUDA
      events, medians of 3), each kernel's launches per call and the peak
-     memory; the ledger equal to the audit to the byte, finite decodes, and
-     on one 4096-wide leaf the card's payload bitwise the CPU's; b.
+     memory; the ledger equal to the audit to the byte (dsc at R 0.5, whose
+     audit is the expected count of a Bernoulli keep: within 6 standard
+     deviations), finite decodes, and on one 4096-wide leaf (and for dsc
+     the (4, 4096, 512) leaf, N 2^23) the card's payload bitwise the CPU's;
+     b.
      benchmarks/fed_heterogeneous at its own size (m 8, dim 128, 256
      examples per client, 50 rounds, norm-proportional budgets around
      R̄ = 1, chunk 64), fedavg and fedmem at 50% participation with 20%
@@ -1358,7 +1380,18 @@ CODEC_CASES = (("ndsc R2", "ndsc", 2.0, {}),
                ("ste topk R1", "sparsify_then_embed", 1.0,
                 {"mode": "topk", "bits": 4}),
                ("ste randk R1", "sparsify_then_embed", 1.0,
-                {"mode": "randk", "bits": 4}))
+                {"mode": "randk", "bits": 4}),
+               # one Hadamard frame per leaf: N 2^14 (x2), 2^23 (x2), 2^26
+               # (x2), 2^28 (x5) and 2^12, so 11 of 12 leaves run the
+               # FWHT's passes, once in an encode and once in a decode
+               ("dsc R2", "dsc", 2.0, {}),
+               ("dsc R0.5", "dsc", 0.5, {}),
+               # chunks of 16384: the encoders' and the FWHT's passes
+               ("ndsc R2 chunk16384", "ndsc", 2.0, {"chunk": 16384}))
+# dsc below 1 bit per embedded coordinate keeps a Bernoulli subset: its
+# audit is the expected payload, its ledger the realized one, held within
+# this many standard deviations of the kept count
+DSC_KEEP_SIGMAS = 6.0
 FED_M, FED_DIM, FED_PER, FED_ROUNDS, FED_CHUNK = 8, 128, 256, 50, 64
 # max |Δx| / max |x|, card against CPU: tests/test_torch_fed.py's PARAM_TOL
 FED_TOL = 1e-4
@@ -1383,8 +1416,10 @@ def codec_phase(dev) -> dict:
     """10a: each wire codec on the 4-layer yi-6b tree: encode, decode and
     (ndsc) encode_ef, each kernel's launches per call, median ms of 3
     CUDA-event timings, peak memory; the ledger equal to the audit to the
-    byte, finite decodes, and on one 4096-wide leaf the card's payload
-    bitwise the CPU's."""
+    byte (dsc at R 0.5: within DSC_KEEP_SIGMAS of it, see there), finite
+    decodes, on one 4096-wide leaf (16384 values: N 16384 for dsc, one
+    chunk of 16384 for ndsc's) the card's payload bitwise the CPU's, and
+    for dsc the (4, 4096, 512) leaf too (N 2^23)."""
     from repro_torch import codecs, configs
     from repro_torch import random as rnd
     from repro_torch import tree as tree_lib
@@ -1434,12 +1469,27 @@ def codec_phase(dev) -> dict:
             raise AssertionError(f"{label}: non-finite decode")
         del dec
         ledger, audit = c.wire_bytes(wire, meta), c.wire_bits(tree) / 8
-        if ledger != audit:
+        r = {}
+        if name == "dsc" and budget < 1.0:
+            # kept ~ Binomial(N, p) per leaf, p = R·n/N
+            var = 0.0
+            for shape in shapes:
+                n = math.prod(shape)
+                big_n = 1 << (n - 1).bit_length()
+                p = budget * n / big_n
+                var += big_n * p * (1 - p)
+            r["ledger_minus_audit_sigmas"] = (
+                (ledger - audit) * 8 / math.sqrt(var))
+            if abs(r["ledger_minus_audit_sigmas"]) > DSC_KEEP_SIGMAS:
+                raise AssertionError(f"{label}: ledger {ledger} is "
+                                     f"{r['ledger_minus_audit_sigmas']:.2f} "
+                                     f"sigmas from the audit {audit}")
+        elif ledger != audit:
             raise AssertionError(f"{label}: ledger {ledger} != audit {audit}")
-        r = {"name": c.name, "wire_bytes": ledger,
-             "encode_launches": enc_counts, "decode_launches": dec_counts,
-             "encode_ms": median_ms(lambda: c.encode(key, tree, 1)),
-             "decode_ms": median_ms(lambda: c.decode(wire, meta))}
+        r |= {"name": c.name, "wire_bytes": ledger, "audit_bytes": audit,
+              "encode_launches": enc_counts, "decode_launches": dec_counts,
+              "encode_ms": median_ms(lambda: c.encode(key, tree, 1)),
+              "decode_ms": median_ms(lambda: c.decode(wire, meta))}
         if c.encode_ef is not None:
             (wire2, resid), ef_counts = count(
                 lambda: c.encode_ef(key, tree, meta, 1))
@@ -1454,10 +1504,14 @@ def codec_phase(dev) -> dict:
                 lambda: c.encode_ef(key, tree, meta, 1))
         r["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
         del wire
-        # the card's payload against the CPU's on one 4096-wide leaf
-        if not _same_tree(c.encode(host_key, {"x": small.cpu()}, 1),
-                          c.encode(key, {"x": small}, 1)):
-            raise AssertionError(f"{label}: card payload != CPU payload")
+        # the card's payload against the CPU's on one 4096-wide leaf, and
+        # for dsc on the (4, 4096, 512) leaf, a frame of N 2^23
+        for leaf in [small] + ([tree["blocks"]["wk"]] if name == "dsc"
+                               else []):
+            if not _same_tree(c.encode(host_key, {"x": leaf.cpu()}, 1),
+                              c.encode(key, {"x": leaf}, 1)):
+                raise AssertionError(f"{label}: card payload != CPU payload "
+                                     f"at {tuple(leaf.shape)}")
         log(f"[codecs] {label}: " + json.dumps(r))
         out[label] = r
     del tree
@@ -1691,6 +1745,186 @@ def time_quantize_pack_ratq(ops, ref, dev, cfg) -> dict:
            "library_ms": None, "bound_ms": b, "bound_by": by,
            "max_abs_err": 0.0}
     del leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 3f: the FWHT and the encoders above N = 8192 ----------------------
+# dense x @ H beside the FWHT's passes at these (N, rows): H is 1 GiB and
+# 4 GiB, x 256 MB; at the dsc frames' N (checks.FWHT_HUGE_N) H does not fit
+LARGE_LIB_SHAPES = ((16384, 4096), (32768, 2048))
+LARGE_CHUNK = 16384          # the codec chunk of 3f's encoders and phase 5b
+
+
+def time_large_fwht(ops, ref, dev) -> dict:
+    """3f: the FWHT's passes at LARGE_LIB_SHAPES (with x @ H) and on one
+    row of each checks.FWHT_HUGE_N (the dsc codec's frames of a full-width
+    yi-6b, 2^28 = 1 GiB): bitwise the plain version, timed (CUDA events,
+    medians of 5; plain of 3), with the bound and the pass count."""
+    from repro_torch.kernels import checks
+    from repro_torch.kernels import fwht as F
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    shapes = list(LARGE_LIB_SHAPES) + [(n, 1) for n in checks.FWHT_HUGE_N]
+    for n, rows in shapes:
+        x = torch.randn(rows, n, generator=g, device=dev)
+        if not torch.equal(ops.fwht(x), ref.fwht(x)):
+            raise AssertionError(f"fwht differs at ({rows}, {n})")
+        log2n = n.bit_length() - 1
+        b, by = bound_ms(x.numel() * 8, x.numel() * (log2n + 1))
+        r = {"shape": [rows, n], "passes": len(F.fwht_plan(log2n)),
+             "ms": timed(lambda: ops.fwht(x)),
+             "plain_ms": timed(lambda: ref.fwht(x), 3),
+             "bound_ms": b, "bound_by": by, "max_abs_err": 0.0,
+             "library_ms": "none (H does not fit)"}
+        if (n, rows) in LARGE_LIB_SHAPES:
+            h = ref.fwht(torch.eye(n, device=dev))               # dense H
+            r["library_ms"] = timed(lambda: x @ h)
+            del h
+        out[f"fwht/{rows}x2^{log2n}"] = r
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_large_encoders(ops, ref, dev, cfg) -> dict:
+    """3f: encode_ef (EF, f32 residual) and encode (dither, keep-0.5 row
+    mask) at chunk LARGE_CHUNK on `cfg`'s leaves (phase 5b's shapes): each
+    leaf's words, scales and residual bitwise the plain version; the tree
+    timed (CUDA events, medians of 5; plain of 3) with its bound and its
+    launches (one per leaf)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.dist import gradcomp as G
+    from repro_torch.models import model as model_lib
+    gc = G.GradCompConfig(bits=4, chunk=LARGE_CHUNK)
+    bits, chunk = gc.bits, gc.chunk
+    shapes = tree_lib.leaves(model_lib.param_shapes(cfg),
+                             is_leaf=lambda s: isinstance(s, tuple))
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    delta = 2.0 / 2 ** bits
+    leaves, draws = [], []
+    for i, shape in enumerate(shapes):
+        rows = -(-math.prod(shape) // chunk)
+        u = torch.randn(rows, chunk, generator=g, device=dev) * 1e-3
+        leaves.append((u, G._frame_signs(i, gc, dev)))
+        draws.append(((torch.rand(u.shape, generator=g, device=dev) - 0.5)
+                      * delta, (torch.rand(rows, 1, generator=g, device=dev)
+                                < 0.5).float()))
+    for (u, s), (d, m) in zip(leaves, draws):
+        got, want = ops.encode_ef(u, s, bits), ref.encode_ef(u, s, bits)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"encode_ef differs at {tuple(u.shape)}")
+        got = ops.encode(u, s, bits, dither=d, mask=m)
+        want = ref.encode(u, s, bits, dither=d, mask=m)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"encode differs at {tuple(u.shape)}")
+        del got, want
+    coords = sum(u.numel() for u, _ in leaves)
+    rows = sum(u.shape[0] for u, _ in leaves)
+    n_levels = math.log2(chunk)
+    ops.reset_launch_counts()
+    [ops.encode_ef(u, s, bits) for u, s in leaves]
+    [ops.encode(u, s, bits, dither=d, mask=m)
+     for (u, s), (d, m) in zip(leaves, draws)]
+    launches = ops.launch_counts()
+    out = {"leaves": len(leaves), "rows": rows, "coordinates": coords,
+           "chunk": chunk}
+    b, by = bound_ms(coords * (4 + bits / 8 + 4) + rows * 4,
+                     coords * (2 * (n_levels + 1) + 12))
+    out["encode_ef"] = {
+        "launches_per_tree": launches["encode_ef"],
+        "ms": timed(lambda: [ops.encode_ef(u, s, bits) for u, s in leaves]),
+        "plain_ms": timed(lambda: [ref.encode_ef(u, s, bits)
+                                   for u, s in leaves], 3),
+        "library_ms": None, "bound_ms": b, "bound_by": by,
+        "max_abs_err": 0.0}
+    b, by = bound_ms(coords * (4 + 4 + bits / 8) + rows * 8,
+                     coords * ((n_levels + 1) + 10))
+    out["encode"] = {
+        "launches_per_tree": launches["encode"],
+        "ms": timed(lambda: [ops.encode(u, s, bits, dither=d, mask=m)
+                             for (u, s), (d, m) in zip(leaves, draws)]),
+        "plain_ms": timed(lambda: [ref.encode(u, s, bits, dither=d, mask=m)
+                                   for (u, s), (d, m) in zip(leaves, draws)],
+                          3),
+        "library_ms": None, "bound_ms": b, "bound_by": by,
+        "max_abs_err": 0.0}
+    del leaves, draws, u, s, d, m
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 5b: training at chunk 16384 (the encoders' and the FWHT's passes) --
+def train_chunk_phase(dev, cfg=None, steps: int = 2) -> dict:
+    """5b: yi-6b at full width cut to 1 layer, `steps` steps of
+    launch.train.train at the launcher's defaults but chunk LARGE_CHUNK
+    (R 4, allgather_packed with EF, batch 8, seq 128): encode_ef,
+    unpack_dequant and fwht launch once per leaf and step (12), all above
+    N = 8192; loss and params finite; then the wq leaf's words, scales and
+    EF residual (its first and last 64 chunks) bitwise its CPU encode."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.dist import gradcomp as G
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train import train
+
+    cfg = cfg or dataclasses.replace(configs.get("yi-6b"), num_layers=1)
+    gc = G.GradCompConfig(bits=4, chunk=LARGE_CHUNK)
+    per_step = []
+
+    def count_step(step, metrics):
+        per_step.append(ops.launch_counts())
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"5b: non-finite loss at step {step}")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params, losses, secs = train(cfg, steps=steps, batch_size=8, seq_len=128,
+                                 gc=gc, lr=3e-4, log_every=1, device=dev,
+                                 on_step=count_step)
+    counts = ops.launch_counts()
+    n_leaves = len(tree_lib.leaves(params))
+    prev = {k: 0 for k in counts}
+    for s, c in enumerate(per_step):
+        for k in ("encode_ef", "unpack_dequant", "fwht"):
+            if c[k] - prev[k] != n_leaves:
+                raise AssertionError(f"5b step {s}: {k} launched "
+                                     f"{c[k] - prev[k]} times, want "
+                                     f"{n_leaves}")
+        prev = c
+    if counts["encode"] != 0:
+        raise AssertionError("5b: the EF path launched the plain encode")
+    if not all(bool(torch.isfinite(p).all())
+               for p in tree_lib.leaves(params)):
+        raise AssertionError("5b: non-finite parameters")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # "blocks" sorts first among the top-level keys, and its leaves are
+    # plain tensors: leaf i is the i-th block key in sorted order
+    i = sorted(params["blocks"]).index("wq")
+    u = tree_lib.leaves(params)[i]
+    payload, resid = G.encode_leaf_ef(u, i, gc, 0)
+    chunks = G._to_chunks(u, gc.chunk)
+    rows = chunks.shape[0]
+    signs = G._frame_signs(i, gc, "cpu")
+    spans = sorted({(0, min(64, rows)), (max(0, rows - 64), rows)})
+    for r0, r1 in spans:
+        want = ref.encode_ef(chunks[r0:r1].cpu(), signs, gc.bits)
+        got = (payload["words"][r0:r1].cpu(), payload["scale"][r0:r1].cpu(),
+               resid.reshape(rows, gc.chunk)[r0:r1].cpu())
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"5b: wq chunks {r0}..{r1} differ from the "
+                                 "CPU encode")
+    out = {"leaves": n_leaves, "chunk": gc.chunk, "losses": losses,
+           "step_s": secs, "peak_mem_GB": peak_gb, "launches": counts,
+           "wq_chunks": rows, "wq_chunks_checked_bitwise": spans}
+    log(f"[5b train x1 chunk {gc.chunk}] {json.dumps(out)}")
+    del params, payload, resid, chunks, u
     torch.cuda.empty_cache()
     return out
 
@@ -2165,6 +2399,15 @@ def main() -> int:
             for n, full_n in checks.UNPACK_SHAPES:
                 checks.check_unpack(bits, n, full_n, rows, dev)
                 configs_checked += 1
+    # above N = 8192: the FWHT's and the encoders' passes
+    for rows in checks.LARGE_ROWS:
+        for n in checks.LARGE_N:
+            for bits in checks.BITS:
+                for mode in checks.CODEC_MODES:
+                    checks.check_codec(n, bits, mode, rows, dev)
+                    configs_checked += 1
+            checks.check_fwht(n, rows, dev)
+            configs_checked += 1
     torch.cuda.synchronize()
     log(f"[check] {configs_checked} configs: payloads, f32 and bf16 EF "
         f"residuals, FWHT and unpack bitwise")
@@ -2312,6 +2555,14 @@ def main() -> int:
     log(json.dumps({"kernel": "quantize_pack/ratq_train", **ratq_pack}))
     clock.done("3e quantize_pack at the RATQ train shape")
 
+    # -- 3f. the FWHT and the encoders above N = 8192 -------------------------
+    large_fwht = time_large_fwht(ops, ref, dev)
+    for key, r in large_fwht.items():
+        log(json.dumps({"kernel": key, **r}))
+    large_encoders = time_large_encoders(ops, ref, dev, cfg1)
+    log(json.dumps({"kernel": "encoders/chunk 16384", **large_encoders}))
+    clock.done("3f FWHT and encoders above N = 8192")
+
     # -- 4. the main path: full-width yi-6b, 4 layers, launcher defaults -----
     per_step = []
 
@@ -2362,6 +2613,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     clock.done("5 train x1 dithered")
+
+    # -- 5b. 1 layer at chunk 16384: the passes in training ------------------
+    train_chunk = train_chunk_phase(dev)
+    clock.done("5b train x1 chunk 16384")
 
     # -- 6. small input: the card vs the CPU's plain versions -----------------
     train_card_vs_cpu(dev, configs.get_reduced("yi-6b"), gc_ef, "small")
@@ -2439,6 +2694,8 @@ def main() -> int:
               "small_serve": small_serve, "algorithms": algorithms,
               "codecs": codec_numbers, "federation": fed_numbers,
               "quantize_pack_ratq_train": ratq_pack,
+              "large_n": {"fwht": large_fwht, "encoders": large_encoders,
+                          "train_x1_chunk16384": train_chunk},
               "dist_one_rank": dist_a, "dist_four_ranks": dist_ranks,
               "families": {"serve_mixtral_x4": moe_serve,
                            "serve_mixtral_x4_launches": moe_serve_counts,

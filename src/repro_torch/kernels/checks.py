@@ -97,17 +97,6 @@ def check_fwht(n, rows, dev) -> None:
         raise AssertionError(f"fwht differs: n={n} rows={rows}")
 
 
-def check_fwht_huge(n, dev) -> None:
-    """The FWHT of one row of n (the passes at a dsc frame's size) bitwise
-    with its plain version (at 2^28 a row is 1 GiB; the plain version
-    holds a few such at once)."""
-    x = torch.randn(1, n, generator=torch.Generator(device=dev)
-                    .manual_seed(n), device=dev)
-    got = ops.fwht(x)
-    if not torch.equal(got, ref.fwht(x)):
-        raise AssertionError(f"fwht differs: n={n}")
-
-
 def check_codec(n, bits, mode, rows, dev) -> None:
     """encode, encode_ef (f32 and bf16 residuals), unpack_dequant and the
     FWHT bitwise with their plain versions; mode is one of CODEC_MODES

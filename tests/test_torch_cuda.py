@@ -141,9 +141,9 @@ def test_cuda_large_n_fwht_matches_plain(cuda, n, rows):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", C.FWHT_HUGE_N)
 def test_cuda_fwht_of_a_dsc_frame_matches_plain(cuda, n):
-    """One row of 2^23, 2^26 and 2^28 (1 GiB): the dsc codec's frames on
-    a full-width yi-6b."""
-    C.check_fwht_huge(n, cuda)
+    """One row of 2^23, 2^26 and 2^28 (1 GiB), aligned and unaligned: the
+    dsc codec's frames on a full-width yi-6b."""
+    C.check_fwht(n, 1, cuda)
     torch.cuda.synchronize()
 
 
