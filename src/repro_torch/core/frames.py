@@ -11,9 +11,10 @@ S Sᵀ = I_n, so the near-democratic embedding is x_nd = Sᵀ y (paper Eq. (8)).
   * Sub-Gaussian            — i.i.d. N(0, 1/N) entries (`DenseFrame`).
 
 `hadamard_frame` draws its signs and rows bitwise as the reference does.
-`haar_frame` and `subgaussian_frame` are not bitwise: their normal draws go
-through `torch.erfinv`, and QR differs between LAPACK builds (and between
-LAPACK and cuSOLVER); parity tests carry the reference's S across
+`haar_frame` and `subgaussian_frame` are not bitwise: their normal draws
+take torch's `log1p` inside XLA's `erf_inv` polynomial, and QR differs
+between LAPACK builds (and between LAPACK and cuSOLVER); parity tests
+carry the reference's S across
 (`convert.frame_from_numpy`). A frame lives on its key's device.
 """
 from __future__ import annotations

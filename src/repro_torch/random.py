@@ -6,7 +6,9 @@ x64 off) for the calls the codec and the paper's algorithms make: `key`,
 `permutation` and int32 `randint`. Shared randomness is part of the wire:
 frame signs, rows, dithers and keep masks must agree bit for bit with the
 reference, so every worker (and every framework) decodes alike. `normal` is
-not bitwise: it goes through `torch.erfinv`, not XLA's `erf_inv`.
+not bitwise: it spells XLA's f32 `erf_inv` polynomial in tensor ops, whose
+`log1p` is torch's, not XLA's (~99% of draws bitwise, the rest within a
+few ulps).
 
 A key is an int64 tensor of shape (2,) holding two uint32 words. A stack of
 keys, shape (..., 2), draws one row per key, each row bitwise equal to the
@@ -193,15 +195,54 @@ def uniform(k: torch.Tensor, shape, minval: float = 0.0,
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+# XLA's f32 erf_inv (Giles' approximation): polynomial coefficients in w
+# for w = −log1p(−x²) < 5 (evaluated at w − 2.5) and ≥ 5 (at √w − 3)
+_ERF_INV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                -4.39150654e-06, 0.00021858087, -0.00125372503,
+                -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 `erf_inv`, term for term: w = −log1p(−x·x), then a degree-8
+    Horner polynomial in w − 2.5 (w < 5) or √w − 3, times x; ±1 map to
+    ±inf. Each Horner step c + p·w is
+    rounded once, as the fused multiply-add XLA's CPU code uses (exact in
+    f64, then rounded to f32), and √w is the f64 root rounded to f32 (the
+    correctly rounded f32 root). On the CPU, torch's f32 `sqrt` and
+    `erfinv` are neither correctly rounded nor the same in every process:
+    in some processes one worker thread's share of the elements comes out
+    otherwise (up to 6.6e-5 relative for `erfinv`), which failed
+    `test_normal_close` once."""
+    f32 = torch.float32
+
+    def c(v):
+        return torch.tensor(v, dtype=f32, device=x.device)
+
+    w = -torch.log1p(-x * x)
+    lt = w < c(5.0)
+    root = torch.sqrt(w.double()).to(f32)        # correctly rounded, as XLA's
+    w = torch.where(lt, w - c(2.5), root - c(3.0))
+    p = torch.where(lt, c(_ERF_INV_LT5[0]), c(_ERF_INV_GE5[0]))
+    w64 = w.double()
+    for lo, hi in zip(_ERF_INV_LT5[1:], _ERF_INV_GE5[1:]):
+        p = (torch.where(lt, c(lo), c(hi)).double()
+             + p.double() * w64).to(f32)
+    return torch.where(x.abs() == c(1.0), x * c(math.inf), p * x)
+
+
 def normal(k: torch.Tensor, shape) -> torch.Tensor:
-    """`jax.random.normal` in float32: √2·erfinv(u) with u uniform on
-    [nextafter(−1, 0), 1). u is bitwise the reference's; `torch.erfinv`
-    and XLA's `erf_inv` differ in the last bits, so the draw is not."""
+    """`jax.random.normal` in float32: √2·erf_inv(u) with u uniform on
+    [nextafter(−1, 0), 1). u is bitwise the reference's, and `erf_inv` is
+    XLA's polynomial; its log1p is torch's, so ~1% of draws differ from
+    the reference's in the last bits."""
     if isinstance(k, StepKey):
         return k.stack.draw(normal, k.t, shape)
     u = uniform(k, shape, -(1.0 - 2.0 ** -24), 1.0)   # f32 nextafter(-1, 0)
     sqrt2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=k.device)
-    return sqrt2 * torch.erfinv(u)
+    return sqrt2 * erf_inv(u)
 
 
 def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
