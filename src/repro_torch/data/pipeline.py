@@ -36,7 +36,10 @@ class TokenStream:
     batch_size: int              # global batch
     seed: int = 0
     markov_temperature: float = 0.3
-    device: str = "cpu"
+    device: object = None        # `cuda` unless the caller asks for the CPU
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
 
     def _table(self):
         """Low-rank logits table factors (V, r), (r, V): row t of the
@@ -74,7 +77,7 @@ def batch_for_shape(cfg, batch_size: int, seq_len: int, step: int = 0,
     device = resolve_device(device)
     if cfg.frontend is None:
         return TokenStream(cfg.vocab_size, seq_len, batch_size, seed,
-                           device=str(device)).batch(step)
+                           device=device).batch(step)
     gen = _generator((seed * 1_000_003 + step) % 2 ** 63, device)
     if cfg.frontend == "audio":
         embeds = torch.randn(batch_size, seq_len, cfg.d_model,

@@ -5,8 +5,8 @@
       --steps 50 --batch 8 --seq 128 --bits 4 --device cpu
 
 Without a GPU, the default `--device cuda` raises rather than running on
-the CPU. Checkpointing (`--ckpt-dir` in the reference) is not ported yet.
-Over m workers, every rank calls `train(..., group=group)` with the same
+the CPU. `--ckpt-dir DIR` saves {"params", "opt_state"} after the last
+step at DIR/step_<steps> (`repro_torch.checkpoint`). Over m workers, every rank calls `train(..., group=group)` with the same
 arguments (`repro_torch.launch.mesh`): each takes its rows of the global
 batch.
 """
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch import tree as tree_lib
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.data.pipeline import batch_for_shape
 from repro_torch.dist import sharding
 from repro_torch.dist import step as step_lib
@@ -34,11 +35,14 @@ def _sync(device: torch.device) -> None:
 
 def train(cfg, *, steps: int, batch_size: int, seq_len: int,
           gc: GradCompConfig, lr: float = 3e-4, log_every: int = 10,
-          seed: int = 0, device=None, on_step=None, group=None):
+          seed: int = 0, device=None, on_step=None, group=None,
+          ckpt_dir=None):
     """Train `steps` steps from seeded random weights on `device` (cuda by
     default), over the workers of `group` (None: one). Returns (params,
     losses, step_seconds); `on_step(step, metrics)` is called after each
-    step, once the device has finished it."""
+    step, once the device has finished it. With `ckpt_dir`, rank 0 saves
+    {"params", "opt_state"} at `ckpt_dir/step_<steps>` after the last
+    step."""
     device = resolve_device(device)
     disable_tf32()
     opt = adamw(warmup_cosine(lr, max(steps // 20, 1), steps),
@@ -79,6 +83,10 @@ def train(cfg, *, steps: int, batch_size: int, seq_len: int,
                   f"gnorm {float(metrics['grad_norm']):.3f}  "
                   f"step {step_seconds[-1]:.3f}s  "
                   f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    if ckpt_dir and sharding.worker_index(group) == 0:
+        path = save_checkpoint(ckpt_dir, steps, {"params": params,
+                                                 "opt_state": opt_state})
+        print(f"checkpoint → {path}")
     return params, losses, step_seconds
 
 
@@ -100,6 +108,7 @@ def main(argv=None):
                     help="unbiased dithered codec — drops the params-sized "
                          "error-feedback state")
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
@@ -111,7 +120,8 @@ def main(argv=None):
                         dithered=args.dithered,
                         error_feedback=not args.dithered)
     return train(cfg, steps=args.steps, batch_size=args.batch,
-                 seq_len=args.seq, gc=gc, lr=args.lr, device=args.device)
+                 seq_len=args.seq, gc=gc, lr=args.lr, device=args.device,
+                 ckpt_dir=args.ckpt_dir)
 
 
 if __name__ == "__main__":

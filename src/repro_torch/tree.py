@@ -103,6 +103,40 @@ def leaves(tree, is_leaf=None) -> list:
     return flatten(tree, is_leaf)[0]
 
 
+def flatten_with_path(tree, is_leaf=None) -> tuple:
+    """([(path, leaf), ...], spec) in `flatten` order, as
+    `jax.tree_util.tree_flatten_with_path` gives them: a path is a tuple
+    of key strings, `['key']` for a dict key, `[i]` for a list or tuple
+    index, `.field` for a NamedTuple field (`keystr` joins them)."""
+    flat, spec = flatten(tree, is_leaf)
+    paths: list = []
+    _paths(spec, (), paths)
+    return list(zip(paths, flat)), spec
+
+
+def _paths(spec, prefix: tuple, out: list) -> None:
+    if spec is _LEAF:
+        out.append(prefix)
+        return
+    kind = spec[0]
+    if kind == "none":
+        return
+    if kind == "dict":
+        for k, c in spec[1]:
+            _paths(c, prefix + (f"[{k!r}]",), out)
+    elif kind == "namedtuple":
+        for name, c in zip(spec[1]._fields, spec[2]):
+            _paths(c, prefix + (f".{name}",), out)
+    else:
+        for i, c in enumerate(spec[1]):
+            _paths(c, prefix + (f"[{i}]",), out)
+
+
+def keystr(path: tuple) -> str:
+    """`jax.tree_util.keystr` of a `flatten_with_path` path."""
+    return "".join(path)
+
+
 def map(fn, tree, *rest):  # noqa: A001 - mirrors jax.tree.map
     """Apply fn leafwise over trees of one structure (the others are read
     up to the first tree's leaves)."""

@@ -210,7 +210,8 @@ def test_token_stream_deterministic():
     cfg = tconfigs.get_reduced("yi-6b")
     a = batch_for_shape(cfg, 3, 9, step=4, seed=1, device="cpu")["tokens"]
     b = batch_for_shape(cfg, 3, 9, step=4, seed=1, device="cpu")["tokens"]
-    c = TokenStream(cfg.vocab_size, 9, 3, seed=1).batch(5)["tokens"]
+    c = TokenStream(cfg.vocab_size, 9, 3, seed=1,
+                    device="cpu").batch(5)["tokens"]
     assert a.shape == (3, 10) and a.dtype == torch.int32
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert int(a.min()) >= 0 and int(a.max()) < cfg.vocab_size
