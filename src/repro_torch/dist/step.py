@@ -26,6 +26,14 @@ the all-to-all move bits, and the worker mean is a left-to-right fold
 (`sharding.fold_mean`), so every rank updates the same params bit for bit.
 The loss (`pmean`), `psum`, `psum_decoded` and ZeRO-1's grad norm are
 `all_reduce` sums in the backend's order.
+
+Observability, as in the reference: the returned step callables carry
+host-side instrumentation. With a `repro_torch.obs` session active, each
+call runs under a "dist.step" (or "dist.step.zero1") span and emits
+per-step counters of the ANALYTIC per-worker payload bytes
+(`gradcomp.wire_bytes_tree` over the model's parameter shapes, computed
+once at factory time). Disabled, the wrapper costs one global load per
+call; the program registers with `obs.recompile` under the span's name.
 """
 from __future__ import annotations
 
@@ -43,6 +51,8 @@ from repro_torch.dist import sharding
 from repro_torch.dist import zero as zero_lib
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
+from repro_torch.obs import core as obs_lib
+from repro_torch.obs import recompile as recompile_lib
 from repro_torch.optimizer.optim import clip_by_global_norm, global_norm
 
 
@@ -89,6 +99,43 @@ def _meta_params(cfg):
     return tree_lib.unflatten(spec, [
         torch.empty(s, dtype=cfg.compute_dtype, device="meta")
         for s in shapes])
+
+
+def _analytic_payload_bytes(cfg, gc: G.GradCompConfig, group):
+    """Per-worker bytes on the wire per step, from the audit over the
+    model's parameter shapes (None when they can't be built)."""
+    try:
+        wire = G.wire_bytes_tree(_meta_params(cfg), gc,
+                                 sharding.num_workers(group))
+        if gc.strategy == "psum":
+            return float(wire["f32_bytes"])
+        return float(wire["payload_bytes"])
+    except Exception:
+        return None
+
+
+def _with_obs(fn, name: str, gc: G.GradCompConfig, payload_bytes):
+    """Host-side instrumentation around a train step; call-transparent
+    (same signature, same outputs). The program stays reachable as
+    `_program`."""
+    recompile_lib.register(name, fn, wire_bytes_per_call=payload_bytes)
+
+    def stepper(params, opt_state, ef, batch):
+        if not obs_lib.enabled():
+            return fn(params, opt_state, ef, batch)
+        obs_lib.observe_program_call(name, fn,
+                                     (params, opt_state, ef, batch),
+                                     wire_bytes=payload_bytes)
+        with obs_lib.span(name, strategy=gc.strategy):
+            out = fn(params, opt_state, ef, batch)
+        obs_lib.counter("dist.steps", 1, strategy=gc.strategy)
+        if payload_bytes is not None:
+            obs_lib.counter("dist.payload_bytes", payload_bytes,
+                            strategy=gc.strategy)
+        return out
+
+    stepper._program = fn
+    return stepper
 
 
 def _grads(loss_of, leaves, spec, batch):
@@ -195,7 +242,8 @@ def make_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
                 p.add_(u.to(p.dtype))
         return params, opt_state, ef, {"loss": loss, "grad_norm": grad_norm}
 
-    return step
+    return _with_obs(step, "dist.step", gc,
+                     _analytic_payload_bytes(cfg, gc, group))
 
 
 def _specs(tree, split=None):
@@ -314,7 +362,8 @@ def make_zero_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
         return owned_params, opt_state, ef, {"loss": loss,
                                              "grad_norm": grad_norm}
 
-    return step
+    return _with_obs(step, "dist.step.zero1", gc,
+                     _analytic_payload_bytes(cfg, gc, group))
 
 
 def _owned_templates(cfg, gc: G.GradCompConfig, m: int):

@@ -28,10 +28,16 @@ Server reduce (`ServerConfig.sum_mode`):
 
 fedmem reduces over ALL memory slots, not over the lanes, so the mesh
 backend gathers the decoded stack and reuses `server.aggregate_stacked`.
+
+The lane fold is one program per (group, sum mode, lane count), registered
+with `repro_torch.obs.recompile` as "fed.aggregate.mesh", as in the
+reference; the cohort round registers as "fed.round.mesh" where
+`Federation` builds it.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -45,6 +51,7 @@ from repro_torch.dist.sharding import (all_gather_stack, all_reduce_sum,
                                        worker_index)
 from repro_torch.fed import clients as clients_lib
 from repro_torch.fed import server as server_lib
+from repro_torch.obs import recompile as recompile_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,19 +154,28 @@ def mesh_weighted_mean(stacked, weights, group, sum_mode: str = "sequential",
     if lanes is None:
         lanes = (stacked.total if isinstance(stacked, LaneShard)
                  else tree_lib.leaves(stacked)[0].shape[0])
-    local, total = _place_lanes(stacked, group)
-    device = tree_lib.leaves(local)[0].device
-    if sum_mode == "sequential":
-        full = gather_lanes(local, total, group)
-        real = tree_lib.map(lambda x: x[:lanes], full)
-        return server_lib._sequential_weighted_sum(
-            real, server_lib._normalized(weights, device))
-    w_pad = np.zeros(total, np.float32)
-    w_pad[:lanes] = np.asarray(weights, np.float64)
-    w = torch.as_tensor(w_pad[_block(total, group)], device=device)
-    w_total = all_reduce_sum(torch.sum(w), group)
-    partial = server_lib._pairwise_weighted_sum(local, w / w_total)
-    return tree_lib.map(lambda x: all_reduce_sum(x, group), partial)
+    return _mesh_mean_fn(group, sum_mode, lanes)(stacked, weights)
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh_mean_fn(group, sum_mode: str, lanes: int):
+    """The lane fold over `group`'s ranks for `lanes` real lanes."""
+    def fold(stacked, weights):
+        local, total = _place_lanes(stacked, group)
+        device = tree_lib.leaves(local)[0].device
+        if sum_mode == "sequential":
+            full = gather_lanes(local, total, group)
+            real = tree_lib.map(lambda x: x[:lanes], full)
+            return server_lib._sequential_weighted_sum(
+                real, server_lib._normalized(weights, device))
+        w_pad = np.zeros(total, np.float32)
+        w_pad[:lanes] = np.asarray(weights, np.float64)
+        w = torch.as_tensor(w_pad[_block(total, group)], device=device)
+        w_total = all_reduce_sum(torch.sum(w), group)
+        partial = server_lib._pairwise_weighted_sum(local, w / w_total)
+        return tree_lib.map(lambda x: all_reduce_sum(x, group), partial)
+
+    return recompile_lib.register("fed.aggregate.mesh", fold)
 
 
 def aggregate_stacked_mesh(state, cfg, stacked, weights, group,

@@ -32,14 +32,24 @@ per cohort, the new client states in one gather per state leaf, and the
 server reduce is a collective fold, bitwise "vmap" under
 `sum_mode="sequential"` (zero-weight padding lanes included).
 
-Differences from the reference: the port makes no `repro.obs` calls (no
-spans, counters or recompile registry); per-lane delta norms are computed
-on the vmap backend only when adaptive re-allocation reads them.
+Observability (`repro_torch.obs`), as in the reference: with a session
+active, `run_round` emits host-side spans for the realloc / client-compute
+/ decode / aggregate stages, and counters, gauges and a histogram sourced
+from the round record (realized vs analytic wire bytes, participant /
+straggler / cohort counts, lane counts); every round and decode program
+registers with `obs.recompile` under the reference's name
+("fed.round.cohort", …). Enabling obs leaves params, EF states and the
+ledger bitwise unchanged. `run(..., obs=session)` activates a session for
+the run and emits a run-level summary event.
+
+Differences from the reference: per-lane delta norms are computed on the
+vmap backend only when adaptive re-allocation reads them.
 A federation runs on `device` (`cuda` unless asked for the CPU): params,
 shards and PRNG lanes are moved there.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional, Sequence
 
@@ -54,6 +64,8 @@ from repro_torch.fed import budget as budget_lib
 from repro_torch.fed import clients as clients_lib
 from repro_torch.fed import mesh as mesh_lib
 from repro_torch.fed import server as server_lib
+from repro_torch.obs import core as obs_lib
+from repro_torch.obs import recompile as recompile_lib
 
 BACKENDS = ("vmap", "mesh")
 
@@ -189,6 +201,8 @@ class Federation:
         # per (spec, config) / cohort key and kept across re-allocations
         self._round_fns: dict = {}
         self._cohort_fns: dict = {}
+        self._cohort_decode_fns: dict = {}
+        self._decode_fns: dict = {}    # spec key -> scalar decode fn
         self._mesh_fns: dict = {}
         self._audit_bits: dict = {}    # spec key -> analytic wire_bits
         self._stacked_data: dict = {}  # cohort key -> (members, stacked)
@@ -210,9 +224,10 @@ class Federation:
         for i in range(m):
             k = self._fn_key(i)
             if k not in self._round_fns:
-                self._round_fns[k] = clients_lib.make_client_round(
-                    self.loss_fn, self.codecs[i], self.client_cfgs[i],
-                    self.server.params)
+                self._round_fns[k] = recompile_lib.register(
+                    "fed.round.scalar", clients_lib.make_client_round(
+                        self.loss_fn, self.codecs[i], self.client_cfgs[i],
+                        self.server.params))
         self._fn_of = [self._round_fns[self._fn_key(i)] for i in range(m)]
         self._cohort_keys = [
             cohort_key(self.codecs[i], self.client_cfgs[i], self.datas[i])
@@ -268,6 +283,36 @@ class Federation:
         return None if self._ema is None else server_lib.stacked_norms(
             decoded)
 
+    def _cohort_decode(self, key, i0: int):
+        """The server's decode of a cohort's stacked wires (one decode
+        launch per leaf for all lanes), built once per cohort key."""
+        fn = self._cohort_decode_fns.get(key)
+        if fn is None:
+            codec, meta = self.codecs[i0], self.metas[i0]
+
+            def decode_cohort(wires, lanes):
+                return codec_base.decode_lanes(codec, wires, meta, lanes)
+
+            fn = recompile_lib.register("fed.decode.cohort", decode_cohort)
+            self._cohort_decode_fns[key] = fn
+        return fn
+
+    def _scalar_decode(self, i: int):
+        """A singleton's decode, shaped like a 1-lane cohort (leading lane
+        axis), built once per codec spec."""
+        k = self._spec_key(i)
+        fn = self._decode_fns.get(k)
+        if fn is None:
+            codec, meta = self.codecs[i], self.metas[i]
+
+            def decode_one(wire):
+                return tree_lib.map(lambda x: x[None],
+                                    codec.decode(wire, meta))
+
+            fn = recompile_lib.register("fed.decode.scalar", decode_one)
+            self._decode_fns[k] = fn
+        return fn
+
     def _run_clients(self, participants: Sequence[int],
                      round_idx: int) -> tuple:
         """Every participant through its cohort (lanes) or scalar round;
@@ -291,7 +336,7 @@ class Federation:
                 groups.append((members, decoded,
                                None if self._ema is None else norms))
             elif key is not None and len(members) > 1:
-                wires, new_states, decoded = self._run_cohort(
+                wires, new_states, decoded, norms = self._run_cohort(
                     key, members, round_idx)
                 # one copy of every lane's wire to the host for the ledger
                 h_wires = _to_host(wires)
@@ -299,29 +344,41 @@ class Federation:
                     bytes_of[i] = self.codecs[i].wire_bytes(
                         codec_base.lane(h_wires, lane), self.metas[i])
                     self.states[i] = codec_base.lane(new_states, lane)
-                groups.append((members, decoded, self._norms(decoded)))
+                groups.append((members, decoded, norms))
             else:
                 for i in members:
-                    wire, self.states[i] = self._fn_of[i](
-                        self.server.params, self.datas[i], self.states[i],
-                        round_idx)
-                    decoded = tree_lib.map(
-                        lambda x: x[None],
-                        self.codecs[i].decode(wire, self.metas[i]))
+                    obs_lib.observe_program_call(
+                        "fed.round.scalar", self._fn_of[i],
+                        (self.server.params, self.datas[i], self.states[i],
+                         round_idx), span="fed.clients.compute",
+                        wire_bytes=self._analytic_bits[i] / 8.0)
+                    with obs_lib.span("fed.clients.compute", lanes=1,
+                                      path="scalar"):
+                        wire, self.states[i] = self._fn_of[i](
+                            self.server.params, self.datas[i],
+                            self.states[i], round_idx)
+                    dfn = self._scalar_decode(i)
+                    obs_lib.observe_program_call(
+                        "fed.decode.scalar", dfn, (wire,), span="fed.decode")
+                    with obs_lib.span("fed.decode", lanes=1, path="scalar"):
+                        decoded = dfn(wire)
+                        norms = self._norms(decoded)
                     bytes_of[i] = self.codecs[i].wire_bytes(
                         _to_host(wire), self.metas[i])
-                    groups.append(([i], decoded, self._norms(decoded)))
+                    groups.append(([i], decoded, norms))
         return bytes_of, groups
 
     def _run_cohort(self, key, members: Sequence[int], round_idx: int):
         """One cohort as lanes: the client round, then the server's decode
-        of every lane (one decode launch per leaf)."""
+        of every lane (one decode launch per leaf) and, when the EMA reads
+        them, the lanes' norms."""
         i0 = members[0]
         fn = self._cohort_fns.get(key)
         if fn is None:
-            fn = clients_lib.make_cohort_round(
-                self.loss_fn, self.codecs[i0], self.client_cfgs[i0],
-                self.server.params)
+            fn = recompile_lib.register(
+                "fed.round.cohort", clients_lib.make_cohort_round(
+                    self.loss_fn, self.codecs[i0], self.client_cfgs[i0],
+                    self.server.params))
             self._cohort_fns[key] = fn
         # shards never change: the stack is reused while the membership
         # repeats (always, at full participation)
@@ -333,10 +390,23 @@ class Federation:
             data = clients_lib.stack_trees([self.datas[i] for i in members])
             self._stacked_data[key] = (mtuple, data)
         state = clients_lib.stack_trees([self.states[i] for i in members])
-        wires, new_states = fn(self.server.params, data, state, round_idx)
-        decoded = codec_base.decode_lanes(self.codecs[i0], wires,
-                                          self.metas[i0], len(members))
-        return wires, new_states, decoded
+        obs_lib.observe_program_call(
+            "fed.round.cohort", fn,
+            (self.server.params, data, state, round_idx),
+            span="fed.clients.compute",
+            wire_bytes=len(members) * self._analytic_bits[i0] / 8.0)
+        with obs_lib.span("fed.clients.compute", lanes=len(members),
+                          path="vmap"):
+            wires, new_states = fn(self.server.params, data, state,
+                                   round_idx)
+        dfn = self._cohort_decode(key, i0)
+        obs_lib.observe_program_call("fed.decode.cohort", dfn,
+                                     (wires, len(members)),
+                                     span="fed.decode")
+        with obs_lib.span("fed.decode", lanes=len(members), path="vmap"):
+            decoded = dfn(wires, len(members))
+            norms = self._norms(decoded)
+        return wires, new_states, decoded, norms
 
     def _run_cohort_mesh(self, key, members: Sequence[int], round_idx: int):
         """One cohort with its lanes split over the ranks: the stacked data
@@ -348,9 +418,10 @@ class Federation:
         total = mesh_lib.padded_lanes(n, mesh_lib.lane_axis_size(self.group))
         fn = self._mesh_fns.get(key)
         if fn is None:
-            fn = mesh_lib.make_mesh_cohort_round(
-                self.loss_fn, self.codecs[i0], self.client_cfgs[i0],
-                self.server.params, self.group)
+            fn = recompile_lib.register(
+                "fed.round.mesh", mesh_lib.make_mesh_cohort_round(
+                    self.loss_fn, self.codecs[i0], self.client_cfgs[i0],
+                    self.server.params, self.group))
             self._mesh_fns[key] = fn
         mtuple = (tuple(members), total)
         cached = self._stacked_data.get(key)
@@ -362,8 +433,15 @@ class Federation:
             self._stacked_data[key] = (mtuple, data)
         state = clients_lib.stack_padded(
             [self.states[i] for i in members], total)
-        wires, new_states, decoded, norms = fn(self.server.params, data,
-                                               state, round_idx)
+        obs_lib.observe_program_call(
+            "fed.round.mesh", fn,
+            (self.server.params, data, state, round_idx),
+            span="fed.clients.compute",
+            wire_bytes=n * self._analytic_bits[i0] / 8.0)
+        with obs_lib.span("fed.clients.compute", lanes=n, padded=total,
+                          path="mesh"):
+            wires, new_states, decoded, norms = fn(self.server.params, data,
+                                                   state, round_idx)
         # this rank's lanes' ledger bytes and norms: one small gather
         h_wires = _to_host(wires)
         lane_bytes = torch.tensor(
@@ -395,9 +473,20 @@ class Federation:
         return stacked, order, norms
 
     def run_round(self, cfg: FedConfig, round_idx: int) -> dict:
-        realloc = self._maybe_reallocate(round_idx)
+        with obs_lib.span("fed.round", round=round_idx,
+                          backend=self.backend):
+            rec, groups = self._run_round(cfg, round_idx)
+        if obs_lib.enabled():
+            self._emit_round_obs(rec, groups)
+        return rec
+
+    def _run_round(self, cfg: FedConfig, round_idx: int) -> tuple:
+        with obs_lib.span("fed.round.realloc"):
+            realloc = self._maybe_reallocate(round_idx)
         participants, stragglers = self.sample_participants(cfg, round_idx)
-        bytes_of, groups = self._run_clients(participants, round_idx)
+        with obs_lib.span("fed.round.clients",
+                          participants=len(participants)):
+            bytes_of, groups = self._run_clients(participants, round_idx)
         realized = analytic = 0.0
         for i in participants:
             realized += bytes_of[i]
@@ -407,12 +496,16 @@ class Federation:
             slot_weights = (self._weights(cfg, range(self.num_clients))
                             if (self.server_cfg.aggregator == "fedmem"
                                 and cfg.weighting != "uniform") else None)
-            self._aggregate(groups, participants, weights, slot_weights)
-        return {"round": round_idx, "participants": participants,
-                "stragglers": stragglers, "wire_bytes": realized,
-                "analytic_bytes": analytic, "realloc": realloc,
-                "rates": (self._rates.tolist()
-                          if self._rates is not None else None)}
+            with obs_lib.span("fed.round.aggregate",
+                              aggregator=self.server_cfg.aggregator,
+                              participants=len(participants)):
+                self._aggregate(groups, participants, weights, slot_weights)
+        return ({"round": round_idx, "participants": participants,
+                 "stragglers": stragglers, "wire_bytes": realized,
+                 "analytic_bytes": analytic, "realloc": realloc,
+                 "rates": (self._rates.tolist()
+                           if self._rates is not None else None)},
+                groups)
 
     def _aggregate(self, groups, participants, weights,
                    slot_weights) -> None:
@@ -463,6 +556,21 @@ class Federation:
                 self.server, self.server_cfg, deltas, weights,
                 participants, slot_weights=slot_weights)
 
+    def _emit_round_obs(self, rec: dict, groups: Sequence) -> None:
+        """Round metrics, sourced from the finished round record and the
+        host-side cohort bookkeeping."""
+        obs_lib.counter("fed.rounds", 1)
+        obs_lib.counter("fed.wire_bytes", rec["wire_bytes"])
+        obs_lib.counter("fed.analytic_bytes", rec["analytic_bytes"])
+        obs_lib.counter("fed.stragglers", len(rec["stragglers"]))
+        if rec["realloc"]:
+            obs_lib.counter("fed.reallocs", 1)
+        obs_lib.gauge("fed.participants", len(rec["participants"]),
+                      round=rec["round"])
+        obs_lib.gauge("fed.cohorts", len(groups), round=rec["round"])
+        for members, _, _ in groups:
+            obs_lib.histogram("fed.cohort_lanes", len(members))
+
     def _weights(self, cfg: FedConfig, participants) -> np.ndarray:
         if cfg.weighting == "data_size":
             return np.array([clients_lib.num_examples(self.datas[i])
@@ -471,29 +579,53 @@ class Federation:
 
     # -- full run ------------------------------------------------------------
     def run(self, cfg: FedConfig,
-            eval_fn: Optional[Callable[[Any], float]] = None) -> dict:
+            eval_fn: Optional[Callable[[Any], float]] = None,
+            obs: Optional[obs_lib.Obs] = None) -> dict:
         """Drive `cfg.num_rounds` rounds from `self.rounds_done`; returns
         the per-round history: round, loss (if eval_fn), wire_bytes,
         analytic_bytes, cum_bytes, participants, stragglers, realloc,
-        rates."""
-        hist = {k: [] for k in ("round", "loss", "wire_bytes",
-                                "analytic_bytes", "cum_bytes",
-                                "participants", "stragglers", "realloc",
-                                "rates")}
-        cum = 0.0
-        start = self.rounds_done
-        for t in range(start, start + cfg.num_rounds):
-            rec = self.run_round(cfg, t)
-            self.rounds_done = t + 1
-            cum += rec["wire_bytes"]
-            hist["round"].append(t)
-            hist["wire_bytes"].append(rec["wire_bytes"])
-            hist["analytic_bytes"].append(rec["analytic_bytes"])
-            hist["cum_bytes"].append(cum)
-            hist["participants"].append(rec["participants"])
-            hist["stragglers"].append(rec["stragglers"])
-            hist["realloc"].append(rec["realloc"])
-            hist["rates"].append(rec["rates"])
-            if eval_fn is not None:
-                hist["loss"].append(float(eval_fn(self.server.params)))
+        rates. A federation restored by `repro_torch.checkpoint.
+        restore_federation` continues with the same round indices as an
+        uninterrupted run.
+
+        `obs` activates a `repro_torch.obs` session for the run (an already
+        active session instruments it the same way); the history is bitwise
+        the same with and without it."""
+        ctx = obs_lib.use(obs) if obs is not None else contextlib.nullcontext()
+        with ctx:
+            hist = {k: [] for k in ("round", "loss", "wire_bytes",
+                                    "analytic_bytes", "cum_bytes",
+                                    "participants", "stragglers", "realloc",
+                                    "rates")}
+            cum = 0.0
+            start = self.rounds_done
+            with obs_lib.span("fed.run", rounds=cfg.num_rounds,
+                              start=start, backend=self.backend):
+                for t in range(start, start + cfg.num_rounds):
+                    rec = self.run_round(cfg, t)
+                    self.rounds_done = t + 1
+                    cum += rec["wire_bytes"]
+                    hist["round"].append(t)
+                    hist["wire_bytes"].append(rec["wire_bytes"])
+                    hist["analytic_bytes"].append(rec["analytic_bytes"])
+                    hist["cum_bytes"].append(cum)
+                    hist["participants"].append(rec["participants"])
+                    hist["stragglers"].append(rec["stragglers"])
+                    hist["realloc"].append(rec["realloc"])
+                    hist["rates"].append(rec["rates"])
+                    if eval_fn is not None:
+                        with obs_lib.span("fed.eval", round=t):
+                            hist["loss"].append(
+                                float(eval_fn(self.server.params)))
+            session = obs_lib.get()
+            if session is not None:
+                session.meta(
+                    "fed.run.summary", rounds=cfg.num_rounds,
+                    start_round=start, backend=self.backend,
+                    clients=self.num_clients,
+                    total_wire_bytes=cum,
+                    total_analytic_bytes=sum(hist["analytic_bytes"]),
+                    stragglers=sum(len(s) for s in hist["stragglers"]),
+                    reallocs=sum(bool(r) for r in hist["realloc"]),
+                    final_loss=(hist["loss"][-1] if hist["loss"] else None))
         return hist

@@ -27,10 +27,16 @@ host float, and fedmem's two layouts run the same memory step, so they
 cannot drift apart. fedmem's mean over the slots is a left-to-right fold
 too (the reference's `jnp.mean`), so the card and the CPU agree on it. The m-independent tail (the η_s step, fedopt's
 optimizer update) is the same code in both.
+
+The stacked layout's reductions are programs registered with
+`repro_torch.obs.recompile` under the reference's names
+("fed.aggregate.mean", "fed.aggregate.memory"), and each call is captured
+by an active obs session for the "fed.round.aggregate" span.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, NamedTuple, Optional, Sequence
 
@@ -39,6 +45,8 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.dist.sharding import fold, fold_mean
+from repro_torch.obs import core as obs_lib
+from repro_torch.obs import recompile as recompile_lib
 from repro_torch.optimizer.optim import Optimizer, apply_updates
 
 AGGREGATORS = ("fedavg", "fedopt", "fedmem")
@@ -253,12 +261,37 @@ def _pairwise_weighted_sum(stacked, w):
     return tree_lib.map(reduce_leaf, stacked)
 
 
+@functools.lru_cache(maxsize=None)
+def _stacked_mean_fn(sum_mode: str):
+    """`(stacked, w normalized) → Σ w_l · lane_l`, the fedavg/fedopt
+    reduction, one program per sum mode."""
+    wsum = (_sequential_weighted_sum if sum_mode == "sequential"
+            else _pairwise_weighted_sum)
+
+    def mean(stacked, w):
+        return wsum(stacked, w)
+
+    return recompile_lib.register("fed.aggregate.mean", mean,
+                                  span="fed.round.aggregate")
+
+
+@functools.lru_cache(maxsize=None)
+def _stacked_memory_fn(has_slot_weights: bool):
+    """fedmem's slot scatter and reduction over ALL slots, as a program."""
+    def memory_step(memory, stacked, participant_ids, slot_weights):
+        return _memory_step(memory, stacked, participant_ids, slot_weights)
+
+    return recompile_lib.register("fed.aggregate.memory", memory_step,
+                                  span="fed.round.aggregate")
+
+
 def _stacked_mean(stacked, weights, sum_mode: str):
     _check_weights(weights)
     w = _normalized(weights, _device(stacked))
-    wsum = (_sequential_weighted_sum if sum_mode == "sequential"
-            else _pairwise_weighted_sum)
-    return wsum(stacked, w)
+    mean_fn = _stacked_mean_fn(sum_mode)
+    obs_lib.observe_program_call("fed.aggregate.mean", mean_fn, (stacked, w),
+                                 span="fed.round.aggregate")
+    return mean_fn(stacked, w)
 
 
 def aggregate_stacked(state: ServerState, cfg: ServerConfig, stacked,
@@ -284,7 +317,10 @@ def aggregate_stacked(state: ServerState, cfg: ServerConfig, stacked,
                             _stacked_mean(stacked, weights, cfg.sum_mode))
     if participant_ids is None:
         raise ValueError("fedmem aggregation needs participant_ids")
-    memory, direction = _memory_step(state.memory, stacked, participant_ids,
-                                     slot_weights)
+    mem_fn = _stacked_memory_fn(slot_weights is not None)
+    args = (state.memory, stacked, list(participant_ids), slot_weights)
+    obs_lib.observe_program_call("fed.aggregate.memory", mem_fn, args,
+                                 span="fed.round.aggregate")
+    memory, direction = mem_fn(*args)
     return ServerState(_apply_delta(state.params, direction, cfg.server_lr),
                        state.opt_state, memory)

@@ -9,6 +9,16 @@ and no fallback: unlike `repro.kernels.ops`, nothing here
 quietly swaps in the reference on the accelerator. All six TPU kernels have
 a CUDA counterpart; each CUDA wrapper counts its launches
 (`launch_counts`).
+
+Observability (`repro_torch.obs`), with the reference's names: every
+dispatch adds to the `kernels.dispatch` counter (attrs: op, path "cuda" for
+the hand-written kernel or "ref" for the plain version, n, forced, always
+False: there is no forcing switch) and records the call with the session's
+cost capture as program `kernels.<op>.<path>`; a CUDA kernel that refuses
+its input adds to `kernels.forced_error` before the error propagates.
+Dispatch is eager, so the counter counts every launch (the reference's
+counts once per trace). With obs disabled this costs one global load per
+call.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ from repro_torch.kernels.quantdecode import quant_decode_attention_cuda
 from repro_torch.kernels.quantencode import encode_cuda, encode_ef_cuda
 from repro_torch.kernels.quantpack import (quantize_pack_cuda,
                                            unpack_dequant_cuda)
+from repro_torch.obs import core as obs
 
 KERNELS = {"encode": encode_cuda, "encode_ef": encode_ef_cuda,
            "unpack_dequant": unpack_dequant_cuda, "fwht": fwht_cuda,
@@ -45,6 +56,26 @@ def _opt(t):
     return None if t is None else t.contiguous()
 
 
+def _run(op: str, path: str, n: int, fn, args: tuple, kwargs=None,
+         static=None):
+    """fn(*args, **kwargs), observed: a refusal of the CUDA kernel counts
+    `kernels.forced_error` and propagates; a call that ran counts
+    `kernels.dispatch` and is captured as `kernels.<op>.<path>`."""
+    kwargs = kwargs or {}
+    try:
+        out = fn(*args, **kwargs)
+    except ValueError:
+        if path == "cuda":
+            obs.counter("kernels.forced_error", 1, op=op, n=int(n))
+        raise
+    if obs._ACTIVE is not None:
+        obs.counter("kernels.dispatch", 1, op=op, path=path, n=int(n),
+                    forced=False)
+        obs.observe_program_call(f"kernels.{op}.{path}", fn, args, kwargs,
+                                 static=static, jit_wrap=True)
+    return out
+
+
 def _row_scale(scale: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """scale as one contiguous value per row of t, (..., 1); broadcast
     only where its lead dims differ from t's (a view costs host time on
@@ -57,8 +88,8 @@ def _row_scale(scale: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 def fwht(x: torch.Tensor) -> torch.Tensor:
     """Normalized Walsh–Hadamard transform along the last axis."""
     if _on_cpu(x):
-        return _ref.fwht(x)
-    return fwht_cuda(x.contiguous())
+        return _run("fwht", "ref", x.shape[-1], _ref.fwht, (x,))
+    return _run("fwht", "cuda", x.shape[-1], fwht_cuda, (x.contiguous(),))
 
 
 def rotate(chunks: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
@@ -81,28 +112,38 @@ def unrotate(x: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
 def quantize_pack(x: torch.Tensor, scale: torch.Tensor,
                   bits: int) -> torch.Tensor:
     """Uniform quantize + bit-pack to int32 words (bits ∈ {1,2,4,8})."""
+    static = ("bits", bits)
     if _on_cpu(x):
-        return _ref.quantize_pack(x, scale, bits)
-    return quantize_pack_cuda(x.contiguous(), _row_scale(scale, x), bits)
+        return _run("quantize_pack", "ref", x.shape[-1], _ref.quantize_pack,
+                    (x, scale, bits), static=static)
+    return _run("quantize_pack", "cuda", x.shape[-1], quantize_pack_cuda,
+                (x.contiguous(), _row_scale(scale, x), bits), static=static)
 
 
 def unpack_dequant(words: torch.Tensor, scale: torch.Tensor, bits: int,
                    n: int) -> torch.Tensor:
     """Unpack + dequantize (inverse of quantize_pack)."""
+    static = ("bits", bits, "n", n)
     if _on_cpu(words):
-        return _ref.unpack_dequant(words, scale, bits, n)
-    return unpack_dequant_cuda(words.contiguous(), _row_scale(scale, words),
-                               bits, n)
+        return _run("unpack_dequant", "ref", n, _ref.unpack_dequant,
+                    (words, scale, bits, n), static=static)
+    return _run("unpack_dequant", "cuda", n, unpack_dequant_cuda,
+                (words.contiguous(), _row_scale(scale, words), bits, n),
+                static=static)
 
 
 def encode(chunks: torch.Tensor, signs: torch.Tensor, bits: int, *,
            dither: torch.Tensor | None = None,
            mask: torch.Tensor | None = None) -> tuple:
     """Fused codec encode: (words, scale), bitwise equal either way."""
+    static = ("bits", bits)
     if _on_cpu(chunks):
-        return _ref.encode(chunks, signs, bits, dither=dither, mask=mask)
-    return encode_cuda(chunks.contiguous(), signs.contiguous(), bits,
-                       dither=_opt(dither), mask=_opt(mask))
+        return _run("encode", "ref", chunks.shape[-1], _ref.encode,
+                    (chunks, signs, bits), {"dither": dither, "mask": mask},
+                    static)
+    return _run("encode", "cuda", chunks.shape[-1], encode_cuda,
+                (chunks.contiguous(), signs.contiguous(), bits),
+                {"dither": _opt(dither), "mask": _opt(mask)}, static)
 
 
 def encode_ef(chunks: torch.Tensor, signs: torch.Tensor, bits: int, *,
@@ -113,12 +154,17 @@ def encode_ef(chunks: torch.Tensor, signs: torch.Tensor, bits: int, *,
     """`encode` plus the error-feedback residual u − D(E(u)).
     residual_dtype=None means f32."""
     rdt = torch.float32 if residual_dtype is None else residual_dtype
+    static = ("bits", bits, "rescale", rescale,
+              "rdt", str(rdt).replace("torch.", ""))
     if _on_cpu(chunks):
-        return _ref.encode_ef(chunks, signs, bits, dither=dither, mask=mask,
-                              rescale=rescale, residual_dtype=rdt)
-    return encode_ef_cuda(chunks.contiguous(), signs.contiguous(), bits,
-                          dither=_opt(dither), mask=_opt(mask),
-                          rescale=rescale, residual_dtype=rdt)
+        return _run("encode_ef", "ref", chunks.shape[-1], _ref.encode_ef,
+                    (chunks, signs, bits),
+                    {"dither": dither, "mask": mask, "rescale": rescale,
+                     "residual_dtype": rdt}, static)
+    return _run("encode_ef", "cuda", chunks.shape[-1], encode_ef_cuda,
+                (chunks.contiguous(), signs.contiguous(), bits),
+                {"dither": _opt(dither), "mask": _opt(mask),
+                 "rescale": rescale, "residual_dtype": rdt}, static)
 
 
 def quant_decode_attention(q: torch.Tensor, kw: torch.Tensor,
@@ -130,11 +176,14 @@ def quant_decode_attention(q: torch.Tensor, kw: torch.Tensor,
     KV cache, V inverse-rotated at the end. q (B,K,G,dh) f32 pre-scaled and
     rotated; kw/vw (B,C,K,dh·bits/32) int32; ks/vs (B,C,K) f32; kv_len (B,)
     int. Returns (B,K,G,dh) f32."""
+    kw_ = {"bits": bits, "inv_rotate_v": inv_rotate_v}
+    static = ("bits", bits, "inv_rotate_v", inv_rotate_v)
     if _on_cpu(q):
-        return _ref.quant_decode_attention(q, kw, ks, vw, vs, kv_len,
-                                           bits=bits,
-                                           inv_rotate_v=inv_rotate_v)
-    return quant_decode_attention_cuda(
-        q.contiguous(), kw.contiguous(), ks.contiguous(), vw.contiguous(),
-        vs.contiguous(), kv_len.to(torch.int32).contiguous(), bits=bits,
-        inv_rotate_v=inv_rotate_v)
+        return _run("quant_decode_attention", "ref", q.shape[-1],
+                    _ref.quant_decode_attention,
+                    (q, kw, ks, vw, vs, kv_len), kw_, static)
+    return _run("quant_decode_attention", "cuda", q.shape[-1],
+                quant_decode_attention_cuda,
+                (q.contiguous(), kw.contiguous(), ks.contiguous(),
+                 vw.contiguous(), vs.contiguous(),
+                 kv_len.to(torch.int32).contiguous()), kw_, static)

@@ -25,10 +25,18 @@ K/V, positions and greedy tokens are bitwise identical;
 `verify_prefix_contract` checks exactly this.
 
 Where the reference jits five programs per (model, max_seq), the port calls
-the same decode functions eagerly; there is nothing to compile or cache.
-The engine runs on `cuda` unless it is given `device="cpu"`, and the
-parameters must already live there. The reference's `repro.obs` spans and
-counters are not ported yet (the port has no observability layer).
+the same decode functions eagerly; there is nothing to compile. The five
+programs are still made once per (model, max_seq) and registered with
+`repro_torch.obs.recompile` under the reference's names. The engine runs
+on `cuda` unless it is given `device="cpu"`, and the parameters must
+already live there.
+
+Observability (zero-overhead when disabled, bitwise the same tokens either
+way), with the reference's names: queue depth / occupancy gauges, prefill
++ extend + admission + decode spans, a time-to-first-token histogram
+(`serve.ttft_s`, tagged by admission kind), prefix hit/miss/evict and
+prefill-bytes-saved counters, and a `serve.exhausted` counter when
+`run_to_completion` gives up.
 """
 from __future__ import annotations
 
@@ -42,6 +50,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import decode as decode_lib
+from repro_torch.obs import core as obs_lib
+from repro_torch.obs import recompile as recompile_lib
 from repro_torch.serve import prefixcache as prefixcache_lib
 
 
@@ -101,6 +111,27 @@ class EngineExhausted(RuntimeError):
             f"{active} active requests ({len(finished)} finished)")
 
 
+@functools.lru_cache(maxsize=64)
+def _programs(cfg, max_seq: int):
+    """The engine's five programs per (model config, max_seq), shared by
+    every engine over that model, as the reference shares its compiled
+    ones."""
+    step = recompile_lib.register(
+        "serve.decode_step", functools.partial(decode_lib.decode_step, cfg))
+    prefill = recompile_lib.register(
+        "serve.prefill", functools.partial(decode_lib.prefill, cfg,
+                                           max_seq=max_seq))
+    extend = recompile_lib.register(
+        "serve.extend", functools.partial(decode_lib.decode_tokens, cfg))
+    admit_cold = recompile_lib.register(
+        "serve.admit_cold", functools.partial(decode_lib.prefill_into, cfg,
+                                              max_seq=max_seq))
+    admit_prefix = recompile_lib.register(
+        "serve.admit_prefix", functools.partial(decode_lib.extend_into, cfg,
+                                                max_seq=max_seq))
+    return step, prefill, extend, admit_cold, admit_prefix
+
+
 class Engine:
     """The continuous-batching scheduler. See the module docstring."""
 
@@ -124,15 +155,8 @@ class Engine:
         self.prefix_cache = prefixcache_lib.PrefixCache(
             config.prefix_cache_entries)
         self._prefixes: dict[str, np.ndarray] = {}   # id -> tokens
-        max_seq = config.max_seq
-        self._step = functools.partial(decode_lib.decode_step, cfg)
-        self._prefill = functools.partial(decode_lib.prefill, cfg,
-                                          max_seq=max_seq)
-        self._extend = functools.partial(decode_lib.decode_tokens, cfg)
-        self._admit_cold = functools.partial(decode_lib.prefill_into, cfg,
-                                             max_seq=max_seq)
-        self._admit_prefix = functools.partial(decode_lib.extend_into, cfg,
-                                               max_seq=max_seq)
+        (self._step, self._prefill, self._extend, self._admit_cold,
+         self._admit_prefix) = _programs(cfg, config.max_seq)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens, np.int32),
@@ -172,13 +196,23 @@ class Engine:
             return                       # rebuilt lazily on next admission
         full = decode_lib.expand_state(self.cfg, entry.state,
                                        self.config.max_seq)
-        _, full = self._extend(self.params, full, self._tokens(more[None, :]))
+        more_arr = self._tokens(more[None, :])
+        obs_lib.observe_program_call("serve.extend", self._extend,
+                                     (self.params, full, more_arr))
+        with obs_lib.span("serve.prefix_extend", prefix_id=prefix_id,
+                          new_tokens=int(more.shape[0])):
+            _, full = self._extend(self.params, full, more_arr)
         self.prefix_cache.put(prefix_id, joined,
                               decode_lib.extract_slot(full, 0))
 
     def _prefill_prefix(self, prefix_id: str) -> prefixcache_lib.PrefixEntry:
         toks = self._prefixes[prefix_id]
-        _, state1 = self._prefill(self.params, self._tokens(toks[None, :]))
+        toks_arr = self._tokens(toks[None, :])
+        obs_lib.observe_program_call("serve.prefill", self._prefill,
+                                     (self.params, toks_arr))
+        with obs_lib.span("serve.prefill", prefix_id=prefix_id,
+                          prompt_len=int(toks.shape[0])):
+            _, state1 = self._prefill(self.params, toks_arr)
         return self.prefix_cache.put(prefix_id, toks,
                                      decode_lib.extract_slot(state1, 0))
 
@@ -195,6 +229,8 @@ class Engine:
                                      device=self.device)
         if req.submit_time is None:
             req.submit_time = time.perf_counter()
+        obs_lib.counter("serve.submitted", 1, prompt_len=len(req.prompt),
+                        prefix=req.prefix_id or "")
         self.queue.append(req)
 
     def idle(self) -> bool:
@@ -206,9 +242,11 @@ class Engine:
         steps = 0
         while not self.idle():
             if steps >= max_steps:
-                raise EngineExhausted(
-                    steps, self.finished, len(self.queue),
-                    sum(r is not None for r in self.active))
+                pending = len(self.queue)
+                active = sum(r is not None for r in self.active)
+                obs_lib.counter("serve.exhausted", 1, steps=steps,
+                                pending=pending, active=active)
+                raise EngineExhausted(steps, self.finished, pending, active)
             self.step()
             steps += 1
         return self.finished
@@ -216,10 +254,22 @@ class Engine:
     # -- engine --------------------------------------------------------------
     def step(self) -> None:
         self._admit()
-        if all(r is None for r in self.active):
+        occupancy = sum(r is not None for r in self.active)
+        if obs_lib.enabled():
+            obs_lib.gauge("serve.queue_depth", len(self.queue))
+            obs_lib.gauge("serve.active_slots", occupancy,
+                          slots=self.config.slots)
+            obs_lib.histogram("serve.batch_occupancy",
+                              occupancy / self.config.slots)
+        if occupancy == 0:
             return
-        logits, self.state = self._step(self.params, self.state,
-                                        self.last_token)
+        obs_lib.observe_program_call(
+            "serve.decode_step", self._step,
+            (self.params, self.state, self.last_token))
+        with obs_lib.span("serve.decode_step", occupancy=occupancy):
+            logits, self.state = self._step(self.params, self.state,
+                                            self.last_token)
+        obs_lib.counter("serve.tokens", occupancy)
         self.last_token = decode_lib.greedy_token(logits)
         next_tok = self.last_token[:, 0].tolist()
         pos = self.state.pos.tolist()
@@ -233,9 +283,21 @@ class Engine:
             if hit_eos or len(req.tokens_out) >= req.max_new_tokens \
                     or pos[slot] >= self.config.max_seq - 1:
                 req.done = True
-                req.finish_time = time.perf_counter()
-                self.finished.append(req)
+                self._retire(req, "eos" if hit_eos else
+                             ("budget" if len(req.tokens_out)
+                              >= req.max_new_tokens else "max_seq"))
                 self.active[slot] = None
+
+    def _retire(self, req: Request, reason: str) -> None:
+        req.finish_time = time.perf_counter()
+        self.finished.append(req)
+        if not obs_lib.enabled():
+            return
+        obs_lib.counter("serve.requests", 1, reason=reason,
+                        tokens=len(req.tokens_out))
+        if req.submit_time is not None:
+            obs_lib.histogram("serve.request_latency_s",
+                              req.finish_time - req.submit_time, rid=req.rid)
 
     # -- admission -----------------------------------------------------------
     def _admit(self) -> None:
@@ -252,17 +314,32 @@ class Engine:
                 entry = self._prefill_prefix(req.prefix_id)
             else:
                 req.admission = "prefix_hit"
-            self.state, logits1 = self._admit_prefix(
-                self.params, self.state, entry.state, req.prompt, slot)
+            obs_lib.observe_program_call(
+                "serve.admit_prefix", self._admit_prefix,
+                (self.params, self.state, entry.state, req.prompt, slot))
+            with obs_lib.span("serve.admit_prefix", slot=slot,
+                              prompt_len=len(req.prompt),
+                              admission=req.admission):
+                self.state, logits1 = self._admit_prefix(
+                    self.params, self.state, entry.state, req.prompt, slot)
         else:
             req.admission = "cold"
-            self.state, logits1 = self._admit_cold(
-                self.params, self.state, req.prompt, slot)
+            obs_lib.observe_program_call(
+                "serve.admit_cold", self._admit_cold,
+                (self.params, self.state, req.prompt, slot))
+            with obs_lib.span("serve.admit_cold", slot=slot,
+                              prompt_len=len(req.prompt)):
+                self.state, logits1 = self._admit_cold(
+                    self.params, self.state, req.prompt, slot)
         first = int(torch.argmax(logits1))
         req.tokens_out.append(first)
         req.first_token_time = time.perf_counter()
         self.last_token[slot, 0] = first
         self.active[slot] = req
+        if obs_lib.enabled() and req.ttft_s is not None:
+            obs_lib.histogram("serve.ttft_s", req.ttft_s,
+                              admission=req.admission,
+                              prompt_len=len(req.prompt))
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,9 @@ Eviction is LRU over a fixed entry budget. `get` misses return None and the
 engine decides (its registered-prefix table keeps the token content, so an
 evicted prefix is rebuilt on the next cold admission).
 
-The reference also reports hits, misses, evictions and saved bytes to
-`repro.obs`; the port has no observability layer yet, so only the
-host-side tallies on the object itself are kept.
+Hits, misses, evictions and the prefill bytes a hit saves are counted on
+the object and, when a `repro_torch.obs` session is active, as the
+reference's `serve.prefix.*` and `serve.prefill_bytes_saved` counters.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.models import decode as decode_lib
+from repro_torch.obs import core as obs_lib
 
 
 @dataclasses.dataclass
@@ -69,9 +70,14 @@ class PrefixCache:
         entry = self._entries.get(prefix_id)
         if entry is None:
             self.misses += 1
+            obs_lib.counter("serve.prefix.miss", 1, prefix_id=prefix_id)
             return None
         self._entries.move_to_end(prefix_id)
         self.hits += 1
+        obs_lib.counter("serve.prefix.hit", 1, prefix_id=prefix_id,
+                        prefix_len=entry.length)
+        obs_lib.counter("serve.prefill_bytes_saved", entry.nbytes,
+                        prefix_id=prefix_id)
         return entry
 
     def peek(self, prefix_id: str) -> PrefixEntry | None:
@@ -87,8 +93,10 @@ class PrefixCache:
         self._entries[prefix_id] = entry
         self._entries.move_to_end(prefix_id)
         while len(self._entries) > self.max_entries:
-            self._entries.popitem(last=False)
+            evicted_id, evicted = self._entries.popitem(last=False)
             self.evictions += 1
+            obs_lib.counter("serve.prefix.evict", 1, prefix_id=evicted_id,
+                            bytes=evicted.nbytes)
         return entry
 
     def stats(self) -> dict:
