@@ -87,14 +87,14 @@ def _like(a: np.ndarray, dtype: str, like):
     kind: a tensor on its device in its dtype, or a numpy array."""
     if not isinstance(like, torch.Tensor):
         return np.asarray(a).astype(np.asarray(like).dtype)
+    a = np.require(a, requirements="C")        # keeps 0-d arrays 0-d
     if dtype == _BF16:
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
-            torch.bfloat16)
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         want = _numpy_dtype(like.dtype)
         if want is not None and a.dtype != want:
             a = a.astype(want)
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        t = torch.from_numpy(a)
     return t.to(device=like.device, dtype=like.dtype)
 
 
