@@ -173,6 +173,34 @@ prints its seconds):
      tokens equal), and two card runs of the MoE forward and backward
      bitwise; e. xlstm-350m at full width and all 24 layers, 2 steps of
      launch.train.train (15 launches per kernel per step);
+ 14. checkpointing and observability (repro_torch.checkpoint,
+     repro_torch.obs), after phase 13: a. fed_heterogeneous at its own
+     size (phase 10b's problem and budgets, adaptive norm-proportional
+     re-allocation every 10 rounds), fedavg and fedmem at 50%
+     participation with 20% stragglers: 25 rounds, save_federation, a
+     fresh Federation restored, 25 more; ledger, participants, params and
+     client states bitwise the uninterrupted 50 rounds, the resumed
+     rounds' encode_ef, unpack_dequant and fwht launches equal to its
+     rounds 26-50; b. fed_cohort_scaling's m 512 the same way (2 + 2
+     rounds, one encode_ef and one unpack_dequant launch per resumed
+     round), and in phase 11d's ranks the mesh run again under an obs
+     session on every rank: bitwise the obs-off run, fed.round spans and
+     fed.* counters on each rank, fed.round.mesh and fed.aggregate.mesh
+     registered; c. phase 7's traffic under obs.enable(memory, jsonl,
+     trace) (files in OUT_DIR/obs/): tokens and cache words bitwise phase
+     7's, every step's kernels.dispatch counts equal to its launches (32 /
+     64 / 96 per decode step), the trace valid, serve.ttft_s for both
+     admission kinds, the kernels' costs equal to phase 3d's bound bytes at
+     the same shapes; the decode step's median with obs off and on, 16
+     pairs of steps in turns, and TTFT by admission kind; d. phase 4's
+     train step (4 layers) with obs on, bitwise 2 obs-off steps from the
+     same state, dist.payload_bytes equal to wire_bytes_tree's payload, 12
+     dispatches per kernel per step; e. launch.train with ckpt_dir at 1
+     layer (697,315,328 values; params and AdamW moments ~8.4 GB): 1 step,
+     saved, restored into a fresh template bitwise, save and restore
+     seconds and GB/s (a temporary directory outside the repository,
+     removed); f. the m 512 round loop, 20 rounds each with obs off and
+     on in turns: the ratio of their trimmed means (recorded, not gated);
  12. print {"kernels": [...]} and, last, the device line.
 
 Without CUDA it exits non-zero before printing any result. Nothing here
@@ -335,6 +363,7 @@ def time_serve_kernels(ops, ref, dev) -> dict:
     ATTN_TIME_SHAPES, 8 bits; kernel 6's device time under the profiler,
     and the host's microseconds per call at the serve shape."""
     from repro_torch.kernels import checks
+    from repro_torch.kernels import cost as kcost
     out = {}
     g = torch.Generator(device=dev)
     g.manual_seed(11)
@@ -343,10 +372,10 @@ def time_serve_kernels(ops, ref, dev) -> dict:
         x = torch.randn(shape, generator=g, device=dev)
         if not torch.equal(ops.fwht(x), ref.fwht(x)):
             raise AssertionError(f"fwht differs at {shape}")
-        coords = x.numel()
-        b, by = bound_ms(coords * 8, coords * (math.log2(shape[-1]) + 1))
+        nbytes, flops = kcost.fwht(x.numel(), shape[-1])
+        b, by = bound_ms(nbytes, flops)
         out[f"fwht/{tag}"] = {
-            "shape": list(shape),
+            "shape": list(shape), "bytes": nbytes,
             "ms": timed(lambda: ops.fwht(x), 20),
             "plain_ms": timed(lambda: ref.fwht(x), 3),
             "library_ms": timed(lambda: x @ h, 20),
@@ -359,11 +388,11 @@ def time_serve_kernels(ops, ref, dev) -> dict:
         if not torch.equal(ops.quantize_pack(x, scale, SERVE_BITS),
                            ref.quantize_pack(x, scale, SERVE_BITS)):
             raise AssertionError(f"quantize_pack differs at {shape}")
-        coords, rows = x.numel(), x.numel() // shape[-1]
-        b, by = bound_ms(coords * (4 + SERVE_BITS / 8) + rows * 4,
-                         coords * 10)
+        nbytes, flops = kcost.quantize_pack(
+            x.numel(), x.numel() // shape[-1], SERVE_BITS)
+        b, by = bound_ms(nbytes, flops)
         out[f"quantize_pack/{tag}"] = {
-            "shape": list(shape),
+            "shape": list(shape), "bytes": nbytes,
             "ms": timed(lambda: ops.quantize_pack(x, scale, SERVE_BITS), 20),
             "plain_ms": timed(lambda: ref.quantize_pack(x, scale,
                                                         SERVE_BITS), 3),
@@ -376,7 +405,6 @@ def time_serve_kernels(ops, ref, dev) -> dict:
                 lambda: ops.quantize_pack(x, scale, SERVE_BITS))
         del x, scale
     kh, gq, dh = 4, 8, 128
-    wpv = dh * SERVE_BITS // 32
     for tag, (b_, c, n) in ATTN_TIME_SHAPES:
         args = checks.attention_inputs(b_, c, kh, gq, dh, SERVE_BITS, c,
                                        dev, lens=[n] * b_)
@@ -388,14 +416,12 @@ def time_serve_kernels(ops, ref, dev) -> dict:
             raise AssertionError(f"quant_decode_attention differs at "
                                  f"B={b_} C={c}: {e}")
         del got, want
-        visited = b_ * n                  # kv_len = n <= C positions
-        # read K and V words + scales of each visited (position, head),
-        # q once, write out; two products over G rows + the unpack of K, V
-        nbytes = visited * kh * (4 * wpv + 4) * 2 + 2 * b_ * kh * gq * dh * 4
-        flops = 4 * kh * gq * visited * dh + 2 * 4 * visited * kh * dh
+        # kv_len = n <= C positions of each of the b_ rows visited
+        nbytes, flops = kcost.quant_decode_attention(
+            b_, kh, gq, dh, SERVE_BITS, b_ * n)
         bnd, by = bound_ms(nbytes, flops)
         out[f"quant_decode_attention/{tag}"] = {
-            "shape": [b_, c, kh, gq, dh], "kv_len": n,
+            "shape": [b_, c, kh, gq, dh], "kv_len": n, "bytes": nbytes,
             "ms": timed(lambda: ops.quant_decode_attention(
                 *args, bits=SERVE_BITS), 20),
             "plain_ms": timed(lambda: ref.quant_decode_attention(
@@ -420,16 +446,36 @@ PHASE7_TRAFFIC = {"prefix": PREFIX_LEN,
                   "profile_len": COLD_LEN}
 
 
-def serve_phase(dev) -> tuple:
-    """Phase 7, the serving main path at full width and depth: yi-6b, 32
-    layers, the 8-bit cache; returns (launch counts of the run, its
-    numbers)."""
+def serve_cfg():
+    """Phase 7's (and 14c's) model: yi-6b, 32 layers, the 8-bit cache."""
     from repro_torch import configs
-    cfg = dataclasses.replace(configs.get("yi-6b"), kv_quant_bits=SERVE_BITS)
-    return serve_run(dev, cfg, "serve x32", PHASE7_TRAFFIC)
+    return dataclasses.replace(configs.get("yi-6b"), kv_quant_bits=SERVE_BITS)
 
 
-def serve_run(dev, cfg, label: str, traffic: dict) -> tuple:
+def serve_phase(dev, keep=None) -> tuple:
+    """Phase 7, the serving main path at full width and depth; returns
+    (launch counts of the run, its numbers). `keep` (a dict) receives the
+    run's tokens and cache words for phase 14c."""
+    return serve_run(dev, serve_cfg(), "serve x32", PHASE7_TRAFFIC, keep)
+
+
+def make_traffic(cfg, traffic: dict) -> tuple:
+    """(prefix tokens, [(prompt tokens, prefix id or None)]) of `traffic`,
+    drawn from seed 5 (numpy int32)."""
+    gen = torch.Generator()
+    gen.manual_seed(5)
+
+    def tokens(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             dtype=torch.int32).numpy()
+
+    prefix = tokens(traffic["prefix"] or SUFFIX_LEN)
+    prompts = [(tokens(n), "sys" if hit else None)
+               for n, hit in traffic["requests"]]
+    return prefix, prompts, tokens
+
+
+def serve_run(dev, cfg, label: str, traffic: dict, keep=None) -> tuple:
     """Serve `cfg` (random weights, seed 0) through an Engine of
     SERVE_SLOTS slots and SERVE_MAX_SEQ positions with `traffic` ({"prefix":
     its length or 0, "requests": [(prompt length, uses the prefix)],
@@ -502,16 +548,7 @@ def serve_run(dev, cfg, label: str, traffic: dict) -> tuple:
 
     eng = Engine(cfg, params, ServeConfig(slots=SERVE_SLOTS,
                                           max_seq=SERVE_MAX_SEQ), device=dev)
-    gen = torch.Generator()
-    gen.manual_seed(5)
-
-    def tokens(n):
-        return torch.randint(0, cfg.vocab_size, (n,), generator=gen,
-                             dtype=torch.int32).numpy()
-
-    prefix = tokens(traffic["prefix"] or SUFFIX_LEN)
-    prompts = [(tokens(n), "sys" if hit else None)
-               for n, hit in traffic["requests"]]
+    prefix, prompts, tokens = make_traffic(cfg, traffic)
     reqs = [Request(rid=rid, prompt=prompt, max_new_tokens=SERVE_NEW,
                     prefix_id=pid) for rid, (prompt, pid) in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
@@ -548,6 +585,14 @@ def serve_run(dev, cfg, label: str, traffic: dict) -> tuple:
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finished = eng.finished
+    if keep is not None:
+        keep["tokens"] = {r.rid: list(r.tokens_out) for r in finished}
+        keep["words"] = {k: v.clone() for k, v in eng.state.caches.items()
+                         if k.endswith("words")}
+        keep["ttft_s_median"] = {
+            k: statistics.median(r.ttft_s for r in finished
+                                 if r.admission == k)
+            for k in sorted({r.admission for r in finished})}
 
     if len(finished) != len(reqs) or any(len(r.tokens_out) != SERVE_NEW
                                          for r in finished):
@@ -1714,6 +1759,7 @@ def time_quantize_pack_ratq(ops, ref, dev, cfg) -> dict:
     R 2 (one RATQ encode's 12 launches): checked against the plain
     version, timed (CUDA events, medians of 5), bounded by its bytes."""
     from repro_torch import tree as tree_lib
+    from repro_torch.kernels import cost as kcost
     from repro_torch.models import model as model_lib
     shapes = tree_lib.leaves(model_lib.param_shapes(cfg),
                              is_leaf=lambda s: isinstance(s, tuple))
@@ -1734,8 +1780,7 @@ def time_quantize_pack_ratq(ops, ref, dev, cfg) -> dict:
     for x, s in leaves:
         ops.quantize_pack(x, s, RATQ_BITS)
     launches = ops.launch_counts()["quantize_pack"]
-    # read x and the row scales, write the 2-bit words
-    b, by = bound_ms(coords * (4 + RATQ_BITS / 8) + rows * 4, coords * 10)
+    b, by = bound_ms(*kcost.quantize_pack(coords, rows, RATQ_BITS))
     out = {"leaves": len(leaves), "rows": rows, "coordinates": coords,
            "launches_per_encode": launches,
            "ms": timed(lambda: [ops.quantize_pack(x, s, RATQ_BITS)
@@ -1762,6 +1807,7 @@ def time_large_fwht(ops, ref, dev) -> dict:
     yi-6b, 2^28 = 1 GiB): bitwise the plain version, timed (CUDA events,
     medians of 5; plain of 3), with the bound and the pass count."""
     from repro_torch.kernels import checks
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import fwht as F
     out = {}
     g = torch.Generator(device=dev)
@@ -1772,7 +1818,7 @@ def time_large_fwht(ops, ref, dev) -> dict:
         if not torch.equal(ops.fwht(x), ref.fwht(x)):
             raise AssertionError(f"fwht differs at ({rows}, {n})")
         log2n = n.bit_length() - 1
-        b, by = bound_ms(x.numel() * 8, x.numel() * (log2n + 1))
+        b, by = bound_ms(*kcost.fwht(x.numel(), n))
         r = {"shape": [rows, n], "passes": len(F.fwht_plan(log2n)),
              "ms": timed(lambda: ops.fwht(x)),
              "plain_ms": timed(lambda: ref.fwht(x), 3),
@@ -1796,6 +1842,7 @@ def time_large_encoders(ops, ref, dev, cfg) -> dict:
     launches (one per leaf)."""
     from repro_torch import tree as tree_lib
     from repro_torch.dist import gradcomp as G
+    from repro_torch.kernels import cost as kcost
     from repro_torch.models import model as model_lib
     gc = G.GradCompConfig(bits=4, chunk=LARGE_CHUNK)
     bits, chunk = gc.bits, gc.chunk
@@ -1825,7 +1872,6 @@ def time_large_encoders(ops, ref, dev, cfg) -> dict:
         del got, want
     coords = sum(u.numel() for u, _ in leaves)
     rows = sum(u.shape[0] for u, _ in leaves)
-    n_levels = math.log2(chunk)
     ops.reset_launch_counts()
     [ops.encode_ef(u, s, bits) for u, s in leaves]
     [ops.encode(u, s, bits, dither=d, mask=m)
@@ -1833,8 +1879,7 @@ def time_large_encoders(ops, ref, dev, cfg) -> dict:
     launches = ops.launch_counts()
     out = {"leaves": len(leaves), "rows": rows, "coordinates": coords,
            "chunk": chunk}
-    b, by = bound_ms(coords * (4 + bits / 8 + 4) + rows * 4,
-                     coords * (2 * (n_levels + 1) + 12))
+    b, by = bound_ms(*kcost.encode_ef(coords, rows, chunk, bits))
     out["encode_ef"] = {
         "launches_per_tree": launches["encode_ef"],
         "ms": timed(lambda: [ops.encode_ef(u, s, bits) for u, s in leaves]),
@@ -1842,8 +1887,8 @@ def time_large_encoders(ops, ref, dev, cfg) -> dict:
                                    for u, s in leaves], 3),
         "library_ms": None, "bound_ms": b, "bound_by": by,
         "max_abs_err": 0.0}
-    b, by = bound_ms(coords * (4 + 4 + bits / 8) + rows * 8,
-                     coords * ((n_levels + 1) + 10))
+    b, by = bound_ms(*kcost.encode(coords, rows, chunk, bits, dither=True,
+                                   mask=True))
     out["encode"] = {
         "launches_per_tree": launches["encode"],
         "ms": timed(lambda: [ops.encode(u, s, bits, dither=d, mask=m)
@@ -2218,6 +2263,7 @@ def rank_mesh_fed(group, dev, rank: int, cohort_m: int, het_rounds: int,
         if not (vrecs == recs and _same_tree(fv.server, fm.server)):
             raise AssertionError("11d: mesh != vmap at m 512")
         out["cohort"]["mesh_eq_vmap"] = True
+    out["obs"] = rank_mesh_obs(lambda: make("mesh"), cfg, recs, fm.server)
 
     # fed_heterogeneous (phase 10b's runs, the f32 loss) under the mesh
     shards, lr, norms = fed_problem(FED_M, FED_DIM, FED_PER, 1.0)
@@ -2255,6 +2301,46 @@ def rank_mesh_fed(group, dev, rank: int, cohort_m: int, het_rounds: int,
             rec["params_bitwise_vmap"] = _same_tree(fv.server, f.server)
         out["het"][label] = rec
     return out
+
+
+def rank_mesh_obs(make, cfg, recs, server) -> dict:
+    """14b on one rank: the same mesh rounds as `recs` from a fresh
+    Federation (`make()`) under an obs session: ledger and params bitwise
+    the obs-off run's (`recs`, `server`); the rank's fed.round spans and
+    fed.* counters, and its registration of fed.round.mesh and
+    fed.aggregate.mesh."""
+    from repro_torch import obs
+    from repro_torch.fed import mesh as mesh_lib
+    from repro_torch.obs import recompile
+    mesh_lib._mesh_mean_fn.cache_clear()     # registers anew in the session
+    names = []
+
+    def on_register(name, fn):
+        names.append(name)
+
+    recompile.add_callback(on_register)
+    session = obs.enable()
+    try:
+        fo = make()
+        orecs = [fo.run_round(cfg, r) for r in range(len(recs))]
+    finally:
+        obs.disable()
+        recompile.remove_callback(on_register)
+    if not (orecs == recs and _same_tree(fo.server, server)):
+        raise AssertionError("14b: the mesh run under obs differs")
+    events = session.memory_events()
+    spans = sum(e["type"] == "span" and e["name"] == "fed.round"
+                for e in events)
+    counters = sorted({e["name"] for e in events if e["type"] == "counter"
+                       and e["name"].startswith("fed.")})
+    want = {"fed.rounds", "fed.wire_bytes", "fed.analytic_bytes",
+            "fed.stragglers"}
+    if spans != len(recs) or not want <= set(counters):
+        raise AssertionError(f"14b: {spans} fed.round spans, {counters}")
+    if not {"fed.round.mesh", "fed.aggregate.mesh"} <= set(names):
+        raise AssertionError(f"14b: registered {names}")
+    return {"fed.round_spans": spans, "fed_counters": counters,
+            "programs": sorted(set(names)), "events": len(events)}
 
 
 def rank_main(argv) -> int:
@@ -2340,9 +2426,456 @@ def ranks_phase() -> dict:
     summary["d"] = ranks[0]["d"]
     summary["d"]["cohort"]["rounds_per_s_all_ranks"] = [
         r["d"]["cohort"]["rounds_per_s"] for r in ranks]
+    summary["d"]["obs_all_ranks"] = [r["d"]["obs"] for r in ranks]
     for k, v in summary.items():
         log(f"[dist {k}] " + json.dumps(v))
     return summary
+
+
+# -- phase 14: checkpointing and observability (checkpoint/*, obs/*) --------
+# a. fed_heterogeneous at its own size, adaptive, saved after CKPT_SPLIT of
+# FED_ROUNDS rounds and resumed; b. fed_cohort_scaling's m 512 saved after
+# COHORT_CKPT_ROUNDS and resumed for as many (its mesh run under obs is in
+# the ranks of phase 11d, `rank_mesh_fed`); c. phase 7's serve run under
+# obs, with OBS_PAIRS decode steps paired off and on; d. phase 4's train
+# step under obs; e. launch.train --ckpt-dir at 1 layer; f. the m 512 round
+# loop paired off and on for FED_OBS_PAIRS rounds each
+CKPT_SPLIT = 25
+COHORT_CKPT_ROUNDS = 2
+OBS_PAIRS = 16
+FED_OBS_PAIRS = 20
+HISTORY_KEYS = ("round", "participants", "stragglers", "wire_bytes",
+                "analytic_bytes", "realloc", "rates")
+EF_KERNELS = ("encode_ef", "unpack_dequant", "fwht")
+
+
+def _counted(fn, kinds=EF_KERNELS):
+    """(fn(), launches of `kinds` during it)."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    out = fn()
+    after = ops.launch_counts()
+    return out, {k: after[k] - before[k] for k in kinds}
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def _save_restore(save, restore, dev) -> dict:
+    """save(dir) then restore(dir) under a fresh temporary directory
+    outside the repository, removed afterwards: seconds and bytes."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        _sync(dev)
+        t = time.perf_counter()
+        save(tmp)
+        _sync(dev)
+        save_s = time.perf_counter() - t
+        nbytes = _dir_bytes(tmp)
+        t = time.perf_counter()
+        restore(tmp)
+        _sync(dev)
+        restore_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "save_GB_per_s": nbytes / save_s / 1e9,
+            "restore_GB_per_s": nbytes / restore_s / 1e9,
+            "tmp_free_GB_before": free_gb}
+
+
+def ckpt_fed_phase(dev, rounds: int = FED_ROUNDS,
+                   split: int = CKPT_SPLIT) -> dict:
+    """14a: fed_heterogeneous (phase 10b's problem and budgets, adaptive
+    norm-proportional re-allocation every 10 rounds around R̄ = 1), fedavg
+    and fedmem at 50% participation with 20% stragglers: `split` rounds,
+    save_federation, a fresh Federation restored, `rounds - split` more;
+    ledger, participants, params and client states bitwise the
+    uninterrupted run's, and the resumed rounds' encode_ef,
+    unpack_dequant and fwht launches equal to its last rounds'."""
+    from repro_torch import checkpoint, codecs, fed
+    from repro_torch.fed import budget
+    shards, lr, norms = fed_problem(FED_M, FED_DIM, FED_PER, 1.0)
+    rates = budget.allocate("norm_proportional", 1.0 * FED_M, FED_M,
+                            norms=norms, min_rate=0.25)
+
+    def factory(r):
+        return codecs.make("ndsc", float(r), chunk=FED_CHUNK)
+
+    adaptive = fed.AdaptiveConfig(total_rate=1.0 * FED_M,
+                                  policy="norm_proportional",
+                                  realloc_every=10, min_rate=0.25)
+    out = {}
+    for label, server_kw, fed_kw in (
+            ("fedavg", {}, {}),
+            ("fedmem partial", {"aggregator": "fedmem", "server_lr": 0.25},
+             {"participation": 0.5, "dropout": 0.2})):
+        def make():
+            return fed.Federation(
+                ls_loss, {"x": torch.zeros(FED_DIM)}, shards,
+                [factory(r) for r in rates], fed.ClientConfig(lr=lr),
+                fed.ServerConfig(**server_kw), seed=0, adaptive=adaptive,
+                codec_factory=factory, device=dev)
+
+        def run(f, n):
+            return _counted(lambda: f.run(fed.FedConfig(
+                num_rounds=n, seed=0, **fed_kw)))
+
+        full = make()
+        h1, _ = run(full, split)
+        h2, want = run(full, rounds - split)
+        half = make()
+        g1, _ = run(half, split)
+        resumed = make()
+        steps = []
+        io = _save_restore(
+            lambda d: checkpoint.save_federation(d, half),
+            lambda d: steps.append(checkpoint.restore_federation(d, resumed)),
+            dev)
+        if steps != [split] or resumed.rounds_done != split:
+            raise AssertionError(f"14a {label}: restored {steps}")
+        g2, got = run(resumed, rounds - split)
+        for k in HISTORY_KEYS:
+            if h1[k] + h2[k] != g1[k] + g2[k]:
+                raise AssertionError(f"14a {label}: {k} differs")
+        if not (_same_tree(full.server, resumed.server)
+                and all(_same_tree(a, b)
+                        for a, b in zip(full.states, resumed.states))):
+            raise AssertionError(f"14a {label}: state differs")
+        if got != want or not got["encode_ef"] or not got["unpack_dequant"]:
+            raise AssertionError(f"14a {label}: launches {got} != {want}")
+        out[label] = {"launches_resumed_rounds": got, **io,
+                      "reallocs_after_save": sum(map(bool, g2["realloc"]))}
+        log(f"[14a] {label}: resumed == uninterrupted, bitwise; "
+            + json.dumps(out[label]))
+    return out
+
+
+def ckpt_cohort_phase(dev, m: int = COHORT_M,
+                      k: int = COHORT_CKPT_ROUNDS) -> dict:
+    """14b: fed_cohort_scaling's m (ndsc R 2, vmap): k rounds, save,
+    restore into a fresh Federation, k more; bitwise the uninterrupted 2k
+    rounds, one encode_ef and one unpack_dequant launch per resumed round
+    (one leaf)."""
+    from repro_torch import checkpoint, codecs, fed
+    shards, lr, _ = fed_problem(m, FED_DIM, COHORT_PER, 0.0)
+    codec = codecs.make("ndsc", 2.0, chunk=FED_CHUNK)
+    cfg1 = fed.FedConfig(num_rounds=1, seed=0)
+
+    def make():
+        return fed.Federation(ls_loss, {"x": torch.zeros(FED_DIM)}, shards,
+                              codec, fed.ClientConfig(lr=lr), seed=0,
+                              device=dev)
+
+    full = make()
+    hf = [full.run(cfg1) for _ in range(2 * k)]
+    half = make()
+    hh = [half.run(cfg1) for _ in range(k)]
+    resumed = make()
+    io = _save_restore(lambda d: checkpoint.save_federation(d, half),
+                       lambda d: checkpoint.restore_federation(d, resumed),
+                       dev)
+    counts = []
+    for _ in range(k):
+        h, c = _counted(lambda: resumed.run(cfg1))
+        hh.append(h)
+        counts.append(c)
+        if c["encode_ef"] != 1 or c["unpack_dequant"] != 1:
+            raise AssertionError(f"14b: a resumed round launched {c}")
+    if not (hf == hh and _same_tree(full.server, resumed.server)
+            and all(_same_tree(a, b)
+                    for a, b in zip(full.states, resumed.states))):
+        raise AssertionError("14b: resumed != uninterrupted")
+    out = {"m": m, "rounds": 2 * k, "launches_per_resumed_round": counts,
+           **io}
+    log("[14b] m %d: resumed == uninterrupted, bitwise; %s"
+        % (m, json.dumps(out)))
+    return out
+
+
+def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
+    """14c: phase 7's traffic through a fresh Engine under
+    obs.enable(memory, jsonl, trace): tokens and cache words bitwise
+    phase 7's (`keep`); every step's kernels.dispatch counts equal its
+    launches, 32 / 64 / 96 per decode step; the trace valid; serve.ttft_s
+    for both admission kinds; the kernels' costs equal to phase 3d's bound
+    bytes (`serve_times`) at the same shapes. Then OBS_PAIRS decode steps
+    of 4 busy slots, alternately under obs.suspended() and obs.use()."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = serve_cfg()
+    nl = cfg.num_scanned
+    per_token = {"quant_decode_attention": nl, "quantize_pack": 2 * nl,
+                 "fwht": 3 * nl}
+    params = model_lib.init_params(0, cfg, dev)
+    eng = Engine(cfg, params, ServeConfig(slots=SERVE_SLOTS,
+                                          max_seq=SERVE_MAX_SEQ), device=dev)
+    prefix, prompts, tokens = make_traffic(cfg, PHASE7_TRAFFIC)
+    obs_dir = OUT_DIR / "obs"
+    obs_dir.mkdir(parents=True, exist_ok=True)
+    trace_path = obs_dir / "serve_trace.json"
+    session = obs.enable(memory=True, jsonl=str(obs_dir / "serve.jsonl"),
+                         trace=str(trace_path))
+    events = session.memory_events()
+
+    def dispatched(fn):
+        n0, before = len(events), ops.launch_counts()
+        fn()
+        after = ops.launch_counts()
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        got = {}
+        for e in events[n0:]:
+            if e["name"] == "kernels.dispatch":
+                if e["attrs"]["path"] != "cuda":
+                    raise AssertionError(f"14c: dispatch {e['attrs']}")
+                got[e["attrs"]["op"]] = got.get(e["attrs"]["op"], 0) + 1
+        if got != launches:
+            raise AssertionError(f"14c: dispatch {got} != launches "
+                                 f"{launches}")
+        return got
+
+    try:
+        dispatched(lambda: eng.register_prefix("sys", prefix, prefill=True))
+        reqs = [Request(rid=rid, prompt=p, max_new_tokens=SERVE_NEW,
+                        prefix_id=pid)
+                for rid, (p, pid) in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        decode_steps = 0
+        while not eng.idle():
+            waiting = [r for r in reqs if r.admission is None]
+            got = dispatched(eng.step)
+            if not any(r.admission is not None for r in waiting):
+                if got != per_token:
+                    raise AssertionError(f"14c: decode step dispatch {got}")
+                decode_steps += 1
+        finished = eng.finished
+        if {r.rid: r.tokens_out for r in finished} != keep["tokens"]:
+            raise AssertionError("14c: tokens differ from phase 7's")
+        for k, v in keep["words"].items():
+            if not torch.equal(eng.state.caches[k], v):
+                raise AssertionError(f"14c: cache {k} differs from phase 7's")
+        ttft_kinds = {e["attrs"]["admission"] for e in events
+                      if e["name"] == "serve.ttft_s"}
+        if ttft_kinds != {"cold", "prefix_hit"}:
+            raise AssertionError(f"14c: serve.ttft_s for {ttft_kinds}")
+        ttft = {k: statistics.median(r.ttft_s for r in finished
+                                     if r.admission == k)
+                for k in sorted(ttft_kinds)}
+        # OBS_PAIRS decode steps of 4 busy slots, off and on in turns
+        for rid in range(SERVE_SLOTS):
+            eng.submit(Request(rid=200 + rid, prompt=tokens(COLD_LEN),
+                               max_new_tokens=2 * OBS_PAIRS + 4))
+        eng.step()                           # admissions + one decode
+        times = {"off": [], "on": []}
+        for i in range(2 * OBS_PAIRS):
+            arm = "off" if i % 2 == 0 else "on"
+            ctx = obs.suspended() if arm == "off" else obs.use(session)
+            with ctx:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                times[arm].append(time.perf_counter() - t)
+        eng.run_to_completion()
+    finally:
+        obs.disable()
+    n_trace = obs.validate_trace(str(trace_path))
+    programs = session.costs()["programs"]
+    checked = []
+    kh, dh = cfg.num_kv_heads, cfg.dh
+    kv, q = (SERVE_SLOTS, 1, kh, dh), (SERVE_SLOTS, kh, cfg.num_heads // kh,
+                                       dh)
+    for key, shape in (("fwht/decode_kv", kv), ("fwht/decode_q", q),
+                       ("quantize_pack/decode", kv),
+                       ("quant_decode_attention/serve", q)):
+        name = f"kernels.{key.split('/')[0]}.cuda"
+        sig = f"float32[{','.join(map(str, shape))}]"
+        specs = [s for s in programs[name]["specializations"]
+                 if s["sig"].startswith("(" + sig)]
+        if not specs or any(s["bytes_accessed"] != serve_times[key]["bytes"]
+                            for s in specs):
+            raise AssertionError(f"14c: {name} {sig} bytes "
+                                 f"{[s['bytes_accessed'] for s in specs]} "
+                                 f"!= {serve_times[key]['bytes']}")
+        checked.append(key)
+    med = {arm: statistics.median(v) * 1e3 for arm, v in times.items()}
+    out = {"decode_steps_checked": decode_steps,
+           "events": len(events), "trace_events": n_trace,
+           "kernel_programs": sorted(n for n in programs
+                                     if n.startswith("kernels.")),
+           "cost_bytes_equal_phase3": checked,
+           "ttft_s_median_obs_on": ttft,
+           "ttft_s_median_phase7": keep["ttft_s_median"],
+           "decode_step_ms_median": med,
+           "decode_step_ms_on_minus_off": med["on"] - med["off"],
+           "pairs": OBS_PAIRS}
+    log("[14c] serve x32 under obs: tokens and cache words == phase 7, "
+        "dispatch == launches; " + json.dumps(out))
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_obs_phase(dev, cfg, gc, steps: int = 2) -> dict:
+    """14d: `steps` train steps of `cfg` (phase 4's size and launcher
+    optimizer) with obs on, bitwise the same steps with obs off from the
+    same state; dist.payload_bytes per step equal to wire_bytes_tree's
+    payload; kernels.dispatch 12 per kernel per step, equal to the
+    launches."""
+    from repro_torch import obs
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import batch_for_shape
+    from repro_torch.dist import step as step_lib
+    from repro_torch.dist.gradcomp import wire_bytes_tree
+    from repro_torch.optimizer.optim import adamw, warmup_cosine
+
+    def run(observe: bool):
+        opt = adamw(warmup_cosine(3e-4, 1, 3), weight_decay=0.1)
+        fn = step_lib.make_train_step(cfg, opt, gc, clip_norm=1.0)
+        p, o, ef = step_lib.init_train_state(cfg, opt, gc, seed=0,
+                                             device=dev)
+        session = obs.enable() if observe else None
+        losses, per_step = [], []
+        try:
+            for s in range(steps):
+                batch = batch_for_shape(cfg, 8, 128, s, 0, device=dev)
+                n0 = len(session.memory_events()) if session else 0
+                (p, o, ef, m), launches = _counted(
+                    lambda: fn(p, o, ef, batch))
+                torch.cuda.synchronize()
+                losses.append(float(m["loss"]))
+                if session:
+                    new = session.memory_events()[n0:]
+                    got = {}
+                    for e in new:
+                        if e["name"] == "kernels.dispatch":
+                            got[e["attrs"]["op"]] = got.get(
+                                e["attrs"]["op"], 0) + 1
+                    payload = [e["value"] for e in new
+                               if e["name"] == "dist.payload_bytes"]
+                    per_step.append({"dispatch": got, "launches": launches,
+                                     "payload_bytes": payload})
+        finally:
+            if session:
+                obs.disable()
+        audit = wire_bytes_tree(p, gc, 1)["payload_bytes"]
+        return losses, p, per_step, audit
+
+    off_losses, p_off, _, _ = run(False)
+    p_off = [x.clone() for x in tree_lib.leaves(p_off)]
+    torch.cuda.empty_cache()
+    on_losses, p_on, per_step, audit = run(True)
+    if on_losses != off_losses or not all(
+            torch.equal(a, b) for a, b in zip(tree_lib.leaves(p_on), p_off)):
+        raise AssertionError("14d: obs changed the train steps")
+    for s, r in enumerate(per_step):
+        if r["payload_bytes"] != [float(audit)]:
+            raise AssertionError(f"14d: step {s} payload {r}, audit {audit}")
+        if r["dispatch"] != {k: 12 for k in EF_KERNELS} or \
+                r["dispatch"] != r["launches"]:
+            raise AssertionError(f"14d: step {s}: {r}")
+    out = {"losses": on_losses, "payload_bytes_per_step": audit,
+           "dispatch_per_step": per_step[0]["dispatch"]}
+    log("[14d] train x%d under obs == obs off, bitwise; %s"
+        % (cfg.num_layers, json.dumps(out)))
+    del p_on, p_off
+    torch.cuda.empty_cache()
+    return out
+
+
+def ckpt_train_phase(dev, cfg, gc) -> dict:
+    """14e: launch.train.train(ckpt_dir=...) of `cfg` for one step; the
+    checkpoint restored into a fresh template, params bitwise; save and
+    restore seconds and GB/s. The directory is a temporary one outside
+    the repository, removed afterwards."""
+    import shutil
+    import tempfile
+    from repro_torch import checkpoint
+    from repro_torch import tree as tree_lib
+    from repro_torch.dist import step as step_lib
+    from repro_torch.launch.train import train
+    from repro_torch.optimizer.optim import adamw, warmup_cosine
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_ckpt_")
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        stamps = []
+        params, losses, secs = train(
+            cfg, steps=1, batch_size=8, seq_len=128, gc=gc, device=dev,
+            on_step=lambda s, m: stamps.append(time.perf_counter()),
+            ckpt_dir=tmp)
+        save_s = time.perf_counter() - stamps[-1]
+        nbytes = _dir_bytes(tmp)
+        opt = adamw(warmup_cosine(3e-4, 1, 1), weight_decay=0.1)
+        like_p, like_o, _ = step_lib.init_train_state(cfg, opt, gc, seed=1,
+                                                      device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        back, step = checkpoint.restore_checkpoint(
+            tmp, {"params": like_p, "opt_state": like_o})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if step != 1 or int(back["opt_state"]["step"]) != 1 or not all(
+            torch.equal(a, b) for a, b in zip(tree_lib.leaves(params),
+                                              tree_lib.leaves(back["params"]))):
+        raise AssertionError("14e: restored params differ")
+    n_values = sum(x.numel() for x in tree_lib.leaves(params))
+    out = {"values": n_values, "bytes": nbytes, "loss": losses[0],
+           "step_s": secs[0], "save_s": save_s, "restore_s": restore_s,
+           "save_GB_per_s": nbytes / save_s / 1e9,
+           "restore_GB_per_s": nbytes / restore_s / 1e9,
+           "tmp_free_GB_before": free_gb}
+    log("[14e] train x1 --ckpt-dir: restored bitwise; " + json.dumps(out))
+    del params, back, like_p, like_o
+    torch.cuda.empty_cache()
+    return out
+
+
+def fed_obs_overhead_phase(dev, m: int = COHORT_M,
+                           pairs: int = FED_OBS_PAIRS) -> dict:
+    """14f: fed_cohort_scaling's m round loop, rounds alternately under
+    obs.suspended() and obs.use(session) (benchmarks/obs_overhead.py's
+    pairing): per-arm 10%-trimmed mean seconds per round and their ratio
+    (recorded, not gated)."""
+    from repro_torch import codecs, fed, obs
+    shards, lr, _ = fed_problem(m, FED_DIM, COHORT_PER, 0.0)
+    f = fed.Federation(ls_loss, {"x": torch.zeros(FED_DIM)}, shards,
+                       codecs.make("ndsc", 2.0, chunk=FED_CHUNK),
+                       fed.ClientConfig(lr=lr), seed=0, device=dev)
+    cfg = fed.FedConfig(num_rounds=2 * pairs + 2, seed=0)
+    session = obs.Obs(sinks=(obs.MemorySink(),))
+    with obs.suspended():
+        f.run_round(cfg, 0)
+    with obs.use(session):
+        f.run_round(cfg, 1)
+    times = {"off": [], "on": []}
+    for t in range(2, 2 * pairs + 2):
+        arm = "off" if t % 2 == 0 else "on"
+        with (obs.suspended() if arm == "off" else obs.use(session)):
+            _sync(dev)
+            t0 = time.perf_counter()
+            f.run_round(cfg, t)
+            _sync(dev)
+            times[arm].append(time.perf_counter() - t0)
+    session.close()
+    keep = max(1, int(round(pairs * 0.9)))
+    mean = {arm: sum(sorted(v)[:keep]) / keep for arm, v in times.items()}
+    out = {"m": m, "pairs": pairs,
+           "round_ms_trimmed_mean": {k: v * 1e3 for k, v in mean.items()},
+           "ratio_on_off": mean["on"] / mean["off"],
+           "events": len(session.memory_events())}
+    log("[14f] obs overhead on the m %d round loop: %s" % (m, json.dumps(out)))
+    return out
 
 
 def main() -> int:
@@ -2355,6 +2888,7 @@ def main() -> int:
     from repro_torch import tree as tree_lib
     from repro_torch.dist import gradcomp as G
     from repro_torch.kernels import _build, checks, ops, ref
+    from repro_torch.kernels import cost as kcost
     from repro_torch.launch.train import train
     from repro_torch.models import model as model_lib
 
@@ -2467,7 +3001,6 @@ def main() -> int:
     decoded = [ops.unpack_dequant(kw, ks, bits, chunk)
                for kw, ks, _ in payloads]
 
-    n_levels = math.log2(chunk)
     h = ref.fwht(torch.eye(chunk, device=dev))              # dense H
     t = {}
     t["encode_ef"] = (
@@ -2486,14 +3019,10 @@ def main() -> int:
     # the card's own write stream of unpack_dequant's outputs
     zero_ms = timed(lambda: [x.zero_() for x in decoded])
     bounds = {
-        # read u, write words + scale + residual; 2 FWHTs, quantize, decode
-        "encode_ef": bound_ms(coords4 * (4 + bits / 8 + 4) + rows4 * 4,
-                              coords4 * (2 * (n_levels + 1) + 12)),
-        # read words + scale, write f32 values
-        "unpack_dequant": bound_ms(coords4 * (bits / 8 + 4) + rows4 * 4,
-                                   coords4 * 4),
-        # read and write f32; log2 N add/sub levels + 1 scaling multiply
-        "fwht": bound_ms(coords4 * 8, coords4 * (n_levels + 1)),
+        "encode_ef": bound_ms(*kcost.encode_ef(coords4, rows4, chunk, bits)),
+        "unpack_dequant": bound_ms(*kcost.unpack_dequant(coords4, rows4,
+                                                         bits)),
+        "fwht": bound_ms(*kcost.fwht(coords4, chunk)),
     }
     del payloads, decoded, leaves4
 
@@ -2517,9 +3046,8 @@ def main() -> int:
         timed(lambda: [ref.encode(u, s, bits, dither=d, mask=m)
                        for (u, s), (d, m) in zip(leaves1, draws)], 3),
         None)
-    # read u, dither, mask; write words + scale; FWHT, scale, dither, quantize
-    bounds["encode"] = bound_ms(coords1 * (4 + 4 + bits / 8) + rows1 * 8,
-                                coords1 * ((n_levels + 1) + 10))
+    bounds["encode"] = bound_ms(*kcost.encode(coords1, rows1, chunk, bits,
+                                              dither=True, mask=True))
     # the loops' variables too: the last leaf, its dither and residual
     # (~3.4 GB) would stay allocated through every later phase
     del leaves1, draws, u, s, d, m, kw, ks, kr, rw, rs
@@ -2623,7 +3151,8 @@ def main() -> int:
     clock.done("6 small train, card vs CPU")
 
     # -- 7. the serving main path: yi-6b, 32 layers, 8-bit NDSC KV cache -------
-    serve_counts, serve_numbers = serve_phase(dev)
+    serve_keep = {}
+    serve_counts, serve_numbers = serve_phase(dev, serve_keep)
     clock.done("7 serve x32")
 
     # -- 8. small input: serving on the card vs the CPU -----------------------
@@ -2659,6 +3188,23 @@ def main() -> int:
     clock.done("13d reduced families, card vs CPU")
     xlstm_train = xlstm_train_phase(dev)
     clock.done("13e train xlstm x24")
+
+    # -- 14. checkpointing and observability (checkpoint/*, obs/*) ----------
+    p14 = {"a": ckpt_fed_phase(dev)}
+    clock.done("14a checkpointed federation, m 8")
+    p14["b"] = ckpt_cohort_phase(dev)
+    p14["b"]["mesh_under_obs (phase 11d ranks)"] = dist_ranks["d"][
+        "obs_all_ranks"]
+    clock.done("14b checkpointed federation, m 512")
+    p14["c"] = serve_obs_phase(dev, serve_keep, serve_times)
+    del serve_keep
+    clock.done("14c serve x32 under obs")
+    p14["d"] = train_obs_phase(dev, cfg4, gc_ef)
+    clock.done("14d train x4 under obs")
+    p14["e"] = ckpt_train_phase(dev, cfg1, gc_ef)
+    clock.done("14e train x1 --ckpt-dir")
+    p14["f"] = fed_obs_overhead_phase(dev)
+    clock.done("14f obs overhead, m 512 rounds")
 
     # -- 12. result lines -------------------------------------------------------
     names = {
@@ -2703,7 +3249,7 @@ def main() -> int:
                            "serve_hymba_x32": hymba_serve,
                            "card_vs_cpu": families,
                            "train_xlstm_x24": xlstm_train},
-              "phase_s": clock.seconds}
+              "phase14": p14, "phase_s": clock.seconds}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))
