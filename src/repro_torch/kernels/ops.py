@@ -72,7 +72,7 @@ def _run(op: str, path: str, n: int, fn, args: tuple, kwargs=None,
         obs.counter("kernels.dispatch", 1, op=op, path=path, n=int(n),
                     forced=False)
         obs.observe_program_call(f"kernels.{op}.{path}", fn, args, kwargs,
-                                 static=static, jit_wrap=True)
+                                 static=static)
     return out
 
 

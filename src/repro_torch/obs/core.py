@@ -148,8 +148,8 @@ class Obs:
 
     # -- cost capture --------------------------------------------------------
     def observe_call(self, name: str, fn, args, kwargs=None, *,
-                     static=None, jit_wrap: bool = False,
-                     span: Optional[str] = None, wire_bytes=None) -> None:
+                     static=None, span: Optional[str] = None,
+                     wire_bytes=None) -> None:
         """Record one observed call of a named program for the cost model
         (abstract signature + call count + analytic wire bytes). Never
         executes anything, never reads a tensor's values, never raises."""
@@ -157,8 +157,8 @@ class Obs:
             return
         try:
             costs_lib.record_call(self._cost_captures, name, fn, args,
-                                  kwargs, static=static, jit_wrap=jit_wrap,
-                                  span=span, wire_bytes=wire_bytes)
+                                  kwargs, static=static, span=span,
+                                  wire_bytes=wire_bytes)
         except Exception:
             pass                          # the cost model must never crash
 
@@ -345,8 +345,8 @@ def histogram(name: str, value, **attrs) -> None:
 
 
 def observe_program_call(name: str, fn, args, kwargs=None, *,
-                         static=None, jit_wrap: bool = False,
-                         span: Optional[str] = None, wire_bytes=None) -> None:
+                         static=None, span: Optional[str] = None,
+                         wire_bytes=None) -> None:
     """Cost-model capture hook for instrumented call sites: record that the
     named program is about to run with these arguments. Disabled sessions
     (and sessions with `costs=False`) cost one global load + early return;
@@ -354,8 +354,8 @@ def observe_program_call(name: str, fn, args, kwargs=None, *,
     o = _ACTIVE
     if o is None:
         return
-    o.observe_call(name, fn, args, kwargs, static=static, jit_wrap=jit_wrap,
-                   span=span, wire_bytes=wire_bytes)
+    o.observe_call(name, fn, args, kwargs, static=static, span=span,
+                   wire_bytes=wire_bytes)
 
 
 def traced(name: Optional[str] = None, **attrs):

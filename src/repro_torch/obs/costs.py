@@ -119,8 +119,8 @@ def _abstractify(x):
 
 
 def record_call(store: dict, name: str, fn, args, kwargs=None, *,
-                static=None, jit_wrap: bool = False,
-                span: Optional[str] = None, wire_bytes=None) -> None:
+                static=None, span: Optional[str] = None,
+                wire_bytes=None) -> None:
     """Observe one call of `fn` under program `name`.
 
     `store` is the owning Obs session's capture dict. First sighting of a
@@ -130,7 +130,8 @@ def record_call(store: dict, name: str, fn, args, kwargs=None, *,
     hashable tag for parameters closed over by `fn` (e.g. quantizer bits)
     so differently-specialized closures don't collide. `span` names the
     host-side obs span this program's time is attributed to (default: the
-    program name). `jit_wrap` is kept for the reference's signature."""
+    program name). The reference's `jit_wrap` flag has no counterpart:
+    nothing here is lowered."""
     kwargs = kwargs or {}
     leaves, spec = tree_lib.flatten((args, kwargs))
     sig = (name, spec, tuple(_leaf_sig(x) for x in leaves), static)
@@ -140,7 +141,7 @@ def record_call(store: dict, name: str, fn, args, kwargs=None, *,
             spec, [_abstractify(x) for x in leaves])
         store[sig] = rec = {
             "name": name, "fn": fn, "args": a_args, "kwargs": a_kwargs,
-            "static": static, "jit_wrap": jit_wrap, "span": span,
+            "static": static, "span": span,
             "calls": 0, "wire_bytes": 0.0, "cost": None,
         }
     rec["calls"] += 1
