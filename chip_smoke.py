@@ -211,6 +211,7 @@ itself.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -2670,24 +2671,61 @@ def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
         ttft = {k: statistics.median(r.ttft_s for r in finished
                                      if r.admission == k)
                 for k in sorted(ttft_kinds)}
-        # OBS_PAIRS decode steps of 4 busy slots, off and on in turns
+        # OBS_PAIRS rounds of decode steps of 4 busy slots in turns: obs
+        # off, this session (memory, JSONL and trace sinks, cost capture),
+        # and a lean one (memory sink, no capture); with the collector's
+        # pauses that land in each arm
         for rid in range(SERVE_SLOTS):
             eng.submit(Request(rid=200 + rid, prompt=tokens(COLD_LEN),
-                               max_new_tokens=2 * OBS_PAIRS + 4))
+                               max_new_tokens=3 * OBS_PAIRS + 4))
         eng.step()                           # admissions + one decode
-        times = {"off": [], "on": []}
-        for i in range(2 * OBS_PAIRS):
-            arm = "off" if i % 2 == 0 else "on"
-            ctx = obs.suspended() if arm == "off" else obs.use(session)
-            with ctx:
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                eng.step()
-                torch.cuda.synchronize()
-                times[arm].append(time.perf_counter() - t)
+        lean = obs.Obs(sinks=(obs.MemorySink(),), costs=False)
+        arms = (("off", obs.suspended), ("on", lambda: obs.use(session)),
+                ("lean", lambda: obs.use(lean)))
+        times = {arm: [] for arm, _ in arms}
+        gc_ms = {arm: 0.0 for arm, _ in arms}
+        current, gc_t0 = [None], [0.0]
+
+        def on_gc(phase, info):
+            if phase == "start":
+                gc_t0[0] = time.perf_counter()
+            elif current[0] is not None:
+                gc_ms[current[0]] += (time.perf_counter() - gc_t0[0]) * 1e3
+
+        gc.callbacks.append(on_gc)
+        try:
+            for i in range(3 * OBS_PAIRS):
+                arm, ctx = arms[i % 3]
+                with ctx():
+                    torch.cuda.synchronize()
+                    current[0] = arm
+                    t = time.perf_counter()
+                    eng.step()
+                    torch.cuda.synchronize()
+                    times[arm].append(time.perf_counter() - t)
+                    current[0] = None
+        finally:
+            gc.callbacks.remove(on_gc)
+        lean.close()
         eng.run_to_completion()
     finally:
         obs.disable()
+    # host µs of one dispatch's obs record (the counter, then the cost
+    # capture of a decode step's K/V FWHT) in a session with this one's
+    # sinks, outside any step
+    probe_dir = OUT_DIR / "obs" / "probe"
+    probe = obs.Obs(sinks=(obs.MemorySink(),
+                           obs.JsonlSink(str(probe_dir / "e.jsonl")),
+                           obs.ChromeTraceSink(str(probe_dir / "t.json"))))
+    x = torch.zeros(SERVE_SLOTS, 1, cfg.num_kv_heads, cfg.dh, device=dev)
+    with obs.use(probe):
+        record_us = {
+            "counter": host_us(lambda: obs.counter(
+                "probe.dispatch", 1, op="fwht", path="cuda", n=128,
+                forced=False)),
+            "capture": host_us(lambda: obs.observe_program_call(
+                "kernels.fwht.cuda", None, (x,)))}
+    probe.close()
     n_trace = obs.validate_trace(str(trace_path))
     programs = session.costs()["programs"]
     checked = []
@@ -2708,6 +2746,7 @@ def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
                                  f"!= {serve_times[key]['bytes']}")
         checked.append(key)
     med = {arm: statistics.median(v) * 1e3 for arm, v in times.items()}
+    gc_ms = {arm: v / OBS_PAIRS for arm, v in gc_ms.items()}
     out = {"decode_steps_checked": decode_steps,
            "events": len(events), "trace_events": n_trace,
            "kernel_programs": sorted(n for n in programs
@@ -2717,7 +2756,8 @@ def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
            "ttft_s_median_phase7": keep["ttft_s_median"],
            "decode_step_ms_median": med,
            "decode_step_ms_on_minus_off": med["on"] - med["off"],
-           "pairs": OBS_PAIRS}
+           "gc_pause_ms_per_step": gc_ms, "record_host_us": record_us,
+           "rounds_of_arms": OBS_PAIRS}
     log("[14c] serve x32 under obs: tokens and cache words == phase 7, "
         "dispatch == launches; " + json.dumps(out))
     del eng, params
