@@ -192,7 +192,10 @@ prints its seconds):
      64 / 96 per decode step), the trace valid, serve.ttft_s for both
      admission kinds, the kernels' costs equal to phase 3d's bound bytes at
      the same shapes; the decode step's median with obs off and on, 16
-     pairs of steps in turns, and TTFT by admission kind; d. phase 4's
+     rounds of steps in turns (with three arms that split "on": the
+     memory sink alone, with the cost capture, with the JSONL and trace
+     sinks; the collector's pauses per arm; the host µs of one
+     dispatch's record), and TTFT by admission kind; d. phase 4's
      train step (4 layers) with obs on, bitwise 2 obs-off steps from the
      same state, dist.payload_bytes equal to wire_bytes_tree's payload, 12
      dispatches per kernel per step; e. launch.train with ckpt_dir at 1
@@ -2673,15 +2676,23 @@ def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
                 for k in sorted(ttft_kinds)}
         # OBS_PAIRS rounds of decode steps of 4 busy slots in turns: obs
         # off, this session (memory, JSONL and trace sinks, cost capture),
-        # and a lean one (memory sink, no capture); with the collector's
+        # and three that split it: the memory sink alone ("lean"), with
+        # the cost capture, with the two file sinks; with the collector's
         # pauses that land in each arm
         for rid in range(SERVE_SLOTS):
             eng.submit(Request(rid=200 + rid, prompt=tokens(COLD_LEN),
-                               max_new_tokens=3 * OBS_PAIRS + 4))
+                               max_new_tokens=5 * OBS_PAIRS + 4))
         eng.step()                           # admissions + one decode
-        lean = obs.Obs(sinks=(obs.MemorySink(),), costs=False)
-        arms = (("off", obs.suspended), ("on", lambda: obs.use(session)),
-                ("lean", lambda: obs.use(lean)))
+        split_dir = obs_dir / "split"
+        parts = {
+            "lean": obs.Obs(sinks=(obs.MemorySink(),), costs=False),
+            "capture": obs.Obs(sinks=(obs.MemorySink(),), costs=True),
+            "files": obs.Obs(sinks=(
+                obs.MemorySink(), obs.JsonlSink(str(split_dir / "e.jsonl")),
+                obs.ChromeTraceSink(str(split_dir / "t.json"))),
+                costs=False)}
+        arms = [("off", obs.suspended), ("on", lambda: obs.use(session))]
+        arms += [(k, lambda o=o: obs.use(o)) for k, o in parts.items()]
         times = {arm: [] for arm, _ in arms}
         gc_ms = {arm: 0.0 for arm, _ in arms}
         current, gc_t0 = [None], [0.0]
@@ -2694,8 +2705,8 @@ def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
 
         gc.callbacks.append(on_gc)
         try:
-            for i in range(3 * OBS_PAIRS):
-                arm, ctx = arms[i % 3]
+            for i in range(len(arms) * OBS_PAIRS):
+                arm, ctx = arms[i % len(arms)]
                 with ctx():
                     torch.cuda.synchronize()
                     current[0] = arm
@@ -2706,7 +2717,8 @@ def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
                     current[0] = None
         finally:
             gc.callbacks.remove(on_gc)
-        lean.close()
+        for o in parts.values():
+            o.close()
         eng.run_to_completion()
     finally:
         obs.disable()
