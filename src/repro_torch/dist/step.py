@@ -116,8 +116,7 @@ def _analytic_payload_bytes(cfg, gc: G.GradCompConfig, group):
 
 def _with_obs(fn, name: str, gc: G.GradCompConfig, payload_bytes):
     """Host-side instrumentation around a train step; call-transparent
-    (same signature, same outputs). The program stays reachable as
-    `_program`."""
+    (same signature, same outputs)."""
     recompile_lib.register(name, fn, wire_bytes_per_call=payload_bytes)
 
     def stepper(params, opt_state, ef, batch):
@@ -134,7 +133,6 @@ def _with_obs(fn, name: str, gc: G.GradCompConfig, payload_bytes):
                             strategy=gc.strategy)
         return out
 
-    stepper._program = fn
     return stepper
 
 

@@ -264,24 +264,18 @@ def _pairwise_weighted_sum(stacked, w):
 @functools.lru_cache(maxsize=None)
 def _stacked_mean_fn(sum_mode: str):
     """`(stacked, w normalized) → Σ w_l · lane_l`, the fedavg/fedopt
-    reduction, one program per sum mode."""
-    wsum = (_sequential_weighted_sum if sum_mode == "sequential"
-            else _pairwise_weighted_sum)
-
-    def mean(stacked, w):
-        return wsum(stacked, w)
-
-    return recompile_lib.register("fed.aggregate.mean", mean,
-                                  span="fed.round.aggregate")
+    reduction of `sum_mode`, registered once per mode."""
+    return recompile_lib.register(
+        "fed.aggregate.mean", _sequential_weighted_sum
+        if sum_mode == "sequential" else _pairwise_weighted_sum,
+        span="fed.round.aggregate")
 
 
 @functools.lru_cache(maxsize=None)
 def _stacked_memory_fn(has_slot_weights: bool):
-    """fedmem's slot scatter and reduction over ALL slots, as a program."""
-    def memory_step(memory, stacked, participant_ids, slot_weights):
-        return _memory_step(memory, stacked, participant_ids, slot_weights)
-
-    return recompile_lib.register("fed.aggregate.memory", memory_step,
+    """fedmem's slot scatter and reduction over ALL slots, registered once
+    per slot weighting, as the reference compiles it."""
+    return recompile_lib.register("fed.aggregate.memory", _memory_step,
                                   span="fed.round.aggregate")
 
 

@@ -103,9 +103,11 @@ class Obs:
         self.closed = False
         self.profiler_trace_active = False
         self.profiler_trace_error: Optional[str] = None
+        self._profiler = None
+        self._profiler_dir = profiler_trace_dir
         if profiler_trace_dir is not None:
-            ok, why = trace_lib.start_profiler_trace(profiler_trace_dir)
-            self.profiler_trace_active = ok
+            self._profiler, why = trace_lib.start_profiler_trace()
+            self.profiler_trace_active = self._profiler is not None
             self.profiler_trace_error = why
         recompile.add_callback(self._on_register)
 
@@ -207,8 +209,10 @@ class Obs:
         if self.closed:
             return self.summary()
         if self.profiler_trace_active:
-            ok, why = trace_lib.stop_profiler_trace()
+            ok, why = trace_lib.stop_profiler_trace(self._profiler,
+                                                    self._profiler_dir)
             self.profiler_trace_active = False
+            self._profiler = None
             if not ok:
                 self.profiler_trace_error = why
         recompile.remove_callback(self._on_register)

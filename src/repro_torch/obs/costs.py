@@ -130,8 +130,8 @@ def record_call(store: dict, name: str, fn, args, kwargs=None, *,
     hashable tag for parameters closed over by `fn` (e.g. quantizer bits)
     so differently-specialized closures don't collide. `span` names the
     host-side obs span this program's time is attributed to (default: the
-    program name). The reference's `jit_wrap` flag has no counterpart:
-    nothing here is lowered."""
+    program name). `fn` is not kept: nothing here is lowered (the
+    reference's `jit_wrap` flag has no counterpart)."""
     kwargs = kwargs or {}
     leaves, spec = tree_lib.flatten((args, kwargs))
     sig = (name, spec, tuple(_leaf_sig(x) for x in leaves), static)
@@ -140,7 +140,7 @@ def record_call(store: dict, name: str, fn, args, kwargs=None, *,
         a_args, a_kwargs = tree_lib.unflatten(
             spec, [_abstractify(x) for x in leaves])
         store[sig] = rec = {
-            "name": name, "fn": fn, "args": a_args, "kwargs": a_kwargs,
+            "name": name, "args": a_args, "kwargs": a_kwargs,
             "static": static, "span": span,
             "calls": 0, "wire_bytes": 0.0, "cost": None,
         }

@@ -131,37 +131,28 @@ def validate_trace(trace: Union[str, dict, list]) -> int:
     return len(events)
 
 
-_PROFILER: list = []          # the running (profile, trace_dir), if any
-
-
-def start_profiler_trace(trace_dir: str) -> tuple:
+def start_profiler_trace() -> tuple:
     """Best-effort start of a `torch.profiler` trace of the CPU and, with a
-    card, CUDA activity; (ok, reason-if-not)."""
+    card, CUDA activity; (the running profile or None, reason-if-not)."""
     try:
         import torch                                   # noqa: PLC0415
         from torch import profiler                     # noqa: PLC0415
-        if _PROFILER:
-            raise RuntimeError("a profiler trace is already running")
         acts = [profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(profiler.ProfilerActivity.CUDA)
         prof = profiler.profile(activities=acts)
         prof.start()
-        _PROFILER.append((prof, trace_dir))
-        return True, None
+        return prof, None
     except Exception as e:
-        # no profiler build, a session already running, a missing module:
+        # no profiler build, a trace already running, a missing module:
         # all mean "no device trace", never "crash the run"
-        return False, f"{type(e).__name__}: {e}"
+        return None, f"{type(e).__name__}: {e}"
 
 
-def stop_profiler_trace() -> tuple:
-    """Best-effort stop; writes `<trace_dir>/profiler_trace.json`
+def stop_profiler_trace(prof, trace_dir: str) -> tuple:
+    """Best-effort stop of `prof`; writes `<trace_dir>/profiler_trace.json`
     (Chrome format); (ok, reason-if-not)."""
     try:
-        if not _PROFILER:
-            raise RuntimeError("no profiler trace is running")
-        prof, trace_dir = _PROFILER.pop()
         prof.stop()
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir,
