@@ -79,7 +79,10 @@ prints its seconds):
      64 and fwht 96; every prefill quantize_pack and fwht 64 times each;
      one more decode step under torch.profiler gives the device's busy
      time; the serve step on the final state gives finite logits; then the
-     prefix contract, bitwise on the card, for the 8-bit and the f32 cache;
+     prefix contract, bitwise on the card, for the 8-bit and the f32 cache.
+     Since PR 23 the engine's programs are CUDA graphs (repro_torch.graph):
+     a first call runs eagerly and captures, later calls replay, and the
+     launches counted are the device's;
   8. the reduced yi-6b served on the card and on the CPU from the same
      weights and prompts: logits within a stated tolerance, greedy tokens
      equal;
@@ -187,9 +190,12 @@ prints its seconds):
      session on every rank: bitwise the obs-off run, fed.round spans and
      fed.* counters on each rank, fed.round.mesh and fed.aggregate.mesh
      registered; c. phase 7's traffic under obs.enable(memory, jsonl,
-     trace) (files in OUT_DIR/obs/): tokens and cache words bitwise phase
-     7's, every step's kernels.dispatch counts equal to its launches (32 /
-     64 / 96 per decode step), the trace valid, serve.ttft_s for both
+     trace) (files in OUT_DIR/obs/), the programs made anew: tokens and
+     cache leaves bitwise phase 7's, every step's kernels.dispatch counts
+     equal to its launches less those its graphs replayed plus those its
+     captures recorded (32 / 64 / 96 launches per decode step), the
+     session's serve.* recompiles equal to the programs'
+     specializations, the trace valid, serve.ttft_s for both
      admission kinds, the kernels' costs equal to phase 3d's bound bytes at
      the same shapes; the decode step's median with obs off and on, 16
      rounds of steps in turns (with three arms that split "on": the
@@ -204,6 +210,20 @@ prints its seconds):
      seconds and GB/s (a temporary directory outside the repository,
      removed); f. the m 512 round loop, 20 rounds each with obs off and
      on in turns: the ratio of their trimmed means (recorded, not gated);
+ 15. the captured serve programs (repro_torch.graph), after phase 14: a.
+     phase 7's traffic on yi-6b x32, 13a's on mixtral x4 and 13c's on
+     hymba again inside graph.eager(), from the same seeded weights:
+     tokens and every cache leaf bitwise the captured runs', launches per
+     step checked in both; b. two engines over yi-6b x32, 4 cold requests
+     each: the second's graphs its own, its tokens and caches the first's,
+     the first's caches untouched; c. for each of the three models a
+     decode step of 4 busy slots, GRAPH_ROUNDS rounds graph and eager in
+     turns: host-clock ms, host µs of the decode program's call and of
+     its graph's replay() alone, one profiled step of each (device busy
+     ms, ops), then the model's traffic three times on that engine
+     (graph, eager, graph: TTFT by admission kind with warm graphs), each
+     program's capture seconds and the graph pool's bytes; d. is 14c
+     (obs under graphs);
  12. print {"kernels": [...]} and, last, the device line.
 
 Without CUDA it exits non-zero before printing any result. Nothing here
@@ -213,6 +233,8 @@ itself.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -479,34 +501,26 @@ def make_traffic(cfg, traffic: dict) -> tuple:
     return prefix, prompts, tokens
 
 
-def serve_run(dev, cfg, label: str, traffic: dict, keep=None) -> tuple:
-    """Serve `cfg` (random weights, seed 0) through an Engine of
-    SERVE_SLOTS slots and SERVE_MAX_SEQ positions with `traffic` ({"prefix":
-    its length or 0, "requests": [(prompt length, uses the prefix)],
-    "profile_len": the prompts of the profiled step}), SERVE_NEW tokens
-    each, launches counted around every public call; then one profiled
-    decode step, the serve step's logits and the prefix contract (8-bit
-    and f32 caches), bitwise on the card. Returns (launch counts of the
-    run, its numbers)."""
-    from repro_torch import tree as tree_lib
-    from repro_torch.dist.step import make_serve_step
-    from repro_torch.kernels import ops
-    from repro_torch.models import decode as decode_lib
-    from repro_torch.models import model as model_lib
-    from repro_torch.serve import (Engine, Request, ServeConfig,
-                                   verify_prefix_contract)
+def per_token_launches(cfg) -> dict:
+    """The serve kernels' launches per decoded token (one decode step)."""
+    nl = cfg.num_scanned
+    return {"quant_decode_attention": nl, "quantize_pack": 2 * nl,
+            "fwht": 3 * nl}
 
-    t0 = time.perf_counter()
-    params = model_lib.init_params(0, cfg, dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(x.numel() for x in tree_lib.leaves(params))
-    log(f"[{label}] {cfg.name} {cfg.num_layers} layers, {n_params} params "
-        f"({n_params * 4 / 1e9:.2f} GB f32) made in {init_s:.2f}s")
+
+def drive_traffic(dev, cfg, params, traffic: dict, label: str) -> dict:
+    """`traffic` through a fresh Engine of SERVE_SLOTS slots and
+    SERVE_MAX_SEQ positions, SERVE_NEW tokens a request, launches counted
+    around every public call (register_prefix, each Engine.step) against
+    what the step ran; every request finishes, admissions as planned,
+    each serve kernel launched, the caches finite. Runs the captured
+    programs, or the eager ones inside `graph.eager()`. Returns the engine
+    and what the run measured."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Engine, Request, ServeConfig
 
     nl = cfg.num_scanned
-    per_token = {"quant_decode_attention": nl, "quantize_pack": 2 * nl,
-                 "fwht": 3 * nl}
+    per_token = per_token_launches(cfg)
     # the attention families prefill in one blockwise pass (K and V of
     # each layer encoded once); the recurrent ones step decode per token
     stepped = cfg.block not in ("attn_mlp", "attn_moe", "attn_moe_dense")
@@ -583,21 +597,12 @@ def serve_run(dev, cfg, label: str, traffic: dict, keep=None) -> tuple:
                 terms.append((per_token, 1))
             return plus(*terms)
 
-        dt = counted(f"step {len(steps) + 1}", eng.step, step_launches)
+        dt = counted(f"{label} step {len(steps) + 1}", eng.step,
+                     step_launches)
         steps.append((dt, [r.admission for r in admitted]))
     run_s = time.perf_counter() - t0
     counts = ops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finished = eng.finished
-    if keep is not None:
-        keep["tokens"] = {r.rid: list(r.tokens_out) for r in finished}
-        keep["words"] = {k: v.clone() for k, v in eng.state.caches.items()
-                         if k.endswith("words")}
-        keep["ttft_s_median"] = {
-            k: statistics.median(r.ttft_s for r in finished
-                                 if r.admission == k)
-            for k in sorted({r.admission for r in finished})}
-
     if len(finished) != len(reqs) or any(len(r.tokens_out) != SERVE_NEW
                                          for r in finished):
         raise AssertionError("not every request finished with "
@@ -613,10 +618,76 @@ def serve_run(dev, cfg, label: str, traffic: dict, keep=None) -> tuple:
     for name, x in eng.state.caches.items():
         if x.is_floating_point() and not bool(torch.isfinite(x).all()):
             raise AssertionError(f"non-finite {name} in the decode state")
-    decode_s = [dt for dt, admitted in steps if not admitted]
-    ttft = {k: statistics.median(r.ttft_s for r in finished
-                                 if r.admission == k)
-            for k in sorted(set(kinds))}
+    return {
+        "eng": eng, "prefix": prefix, "prompts": prompts, "tokens": tokens,
+        "steps": steps, "counts": counts, "run_s": run_s,
+        "prefix_prefill_s": prefix_prefill_s,
+        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "out": {r.rid: list(r.tokens_out) for r in finished},
+        "decode_s": [dt for dt, admitted in steps if not admitted],
+        "ttft_s_median": {k: statistics.median(
+            r.ttft_s for r in finished if r.admission == k)
+            for k in sorted(set(kinds))}}
+
+
+# the order of serve.engine._programs' five programs
+PROGRAM_NAMES = ("serve.decode_step", "serve.prefill", "serve.extend",
+                 "serve.admit_cold", "serve.admit_prefix")
+
+
+def bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def graph_pool_bytes() -> int:
+    """Bytes the caching allocator holds in private pools: the captured
+    graphs' memory (their intermediates and static outputs)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def cache_snapshot(state) -> dict:
+    """Host copies of every per-slot cache leaf and the positions."""
+    from repro_torch.models import decode as decode_lib
+    snap = {k: v.to("cpu", copy=True) for k, v in state.caches.items()
+            if k not in decode_lib.SHARED_CACHE_KEYS}
+    snap["pos"] = state.pos.to("cpu", copy=True)
+    return snap
+
+
+def serve_run(dev, cfg, label: str, traffic: dict, keep=None) -> tuple:
+    """Serve `cfg` (random weights, seed 0) with `traffic` ({"prefix": its
+    length or 0, "requests": [(prompt length, uses the prefix)],
+    "profile_len": the prompts of the profiled step}) through
+    drive_traffic (the captured programs); then one profiled decode step,
+    the serve step's logits and the prefix contract (8-bit and f32
+    caches), bitwise on the card. `keep` (a dict) receives the run's
+    tokens, cache leaves and TTFT for phases 14c and 15. Returns (launch
+    counts of the run, its numbers)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.dist.step import make_serve_step
+    from repro_torch.models import decode as decode_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import Request, ServeConfig, verify_prefix_contract
+
+    t0 = time.perf_counter()
+    params = model_lib.init_params(0, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_lib.leaves(params))
+    log(f"[{label}] {cfg.name} {cfg.num_layers} layers, {n_params} params "
+        f"({n_params * 4 / 1e9:.2f} GB f32) made in {init_s:.2f}s")
+    nl = cfg.num_scanned
+    run = drive_traffic(dev, cfg, params, traffic, label)
+    eng, steps, counts = run["eng"], run["steps"], run["counts"]
+    prefix, prompts, tokens = run["prefix"], run["prompts"], run["tokens"]
+    if keep is not None:
+        keep["tokens"] = run["out"]
+        keep["caches"] = cache_snapshot(eng.state)
+        keep["ttft_s_median"] = run["ttft_s_median"]
+        keep["decode_step_s_median"] = statistics.median(run["decode_s"])
+    decode_s = run["decode_s"]
     positional = [x for name, x in eng.state.caches.items()
                   if name in decode_lib.POSITIONAL_CACHE_KEYS
                   and name.endswith("words")]
@@ -630,17 +701,20 @@ def serve_run(dev, cfg, label: str, traffic: dict, keep=None) -> tuple:
         elif name not in decode_lib.SHARED_CACHE_KEYS and \
                 not name.endswith("scale"):
             f32_bytes += x.numel() * x.element_size()
-    n_tokens = sum(len(r.tokens_out) for r in finished)
+    n_tokens = sum(len(t) for t in run["out"].values())
+    run_s = run["run_s"]
     numbers = {
         "layers": nl, "params": n_params, "init_s": init_s,
         "run_s": run_s, "tokens": n_tokens, "tokens_per_s": n_tokens / run_s,
         "steps": len(steps), "decode_steps": len(decode_s),
         "decode_step_s_median": statistics.median(decode_s),
         "decode_tokens_per_s": SERVE_SLOTS / statistics.median(decode_s),
-        "prefix_prefill_s": prefix_prefill_s,
+        "prefix_prefill_s": run["prefix_prefill_s"],
         "admission_steps": [{"s": dt, "admitted": admitted}
                             for dt, admitted in steps if admitted],
-        "ttft_s_median": ttft, "peak_mem_GB": peak_gb,
+        "ttft_s_median": run["ttft_s_median"],
+        "peak_mem_GB": run["peak_mem_GB"],
+        "graph_pool_bytes": graph_pool_bytes(),
         "cache_bytes": cache_bytes, "cache_bytes_if_f32": f32_bytes,
         "words_shape": list(positional[0].shape), "launches": counts}
     log(f"[{label}] {json.dumps(numbers)}")
@@ -833,17 +907,30 @@ FAMILY_PROMPT, FAMILY_STEPS, FAMILY_MAX_SEQ = 60, 8, 80
 MOE_TRAIN_LR = 1e-2              # 13b: SGD, no clip (phase 11b's step)
 
 
-def moe_serve_phase(dev, cfg=None) -> tuple:
+def moe_serve_cfg():
+    """13a's (and 15's) model: mixtral-8x22b, MOE_SERVE_LAYERS layers, the
+    8-bit cache."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get("mixtral-8x22b"),
+                               num_layers=MOE_SERVE_LAYERS,
+                               kv_quant_bits=SERVE_BITS)
+
+
+def hymba_serve_cfg():
+    """13c's (and 15's) model: hymba-1.5b whole, the 8-bit cache."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get("hymba-1.5b"),
+                               kv_quant_bits=SERVE_BITS)
+
+
+def moe_serve_phase(dev, cfg=None, keep=None) -> tuple:
     """13a: mixtral-8x22b at full width, MOE_SERVE_LAYERS layers, through
     the 8-bit cache with phase 7's traffic (serve_run). With 4 slots the
     decode capacity is 1 token per expert, so tokens are dropped (GShard's
     rule, as in the reference)."""
-    from repro_torch import configs
-    cfg = cfg or dataclasses.replace(configs.get("mixtral-8x22b"),
-                                     num_layers=MOE_SERVE_LAYERS,
-                                     kv_quant_bits=SERVE_BITS)
+    cfg = cfg or moe_serve_cfg()
     counts, numbers = serve_run(dev, cfg, "13a serve mixtral x4",
-                                PHASE7_TRAFFIC)
+                                PHASE7_TRAFFIC, keep)
     # every decode step reads every weight once (the MoE runs all experts
     # on its (E, C, d) buffer)
     numbers["weight_read_floor_ms"] = (numbers["params"] * 4 / PEAK_BYTES_S
@@ -940,15 +1027,13 @@ def moe_train_phase(dev, cfg=None, batch: int = 8, seq: int = 128) -> dict:
     return out
 
 
-def hymba_serve_phase(dev, cfg=None) -> tuple:
+def hymba_serve_phase(dev, cfg=None, keep=None) -> tuple:
     """13c: hymba-1.5b at full width and all 32 layers through the 8-bit
     cache: 4 cold 32-token prompts, SERVE_NEW tokens each (its prefill
     steps decode, so each prompt token launches a decode step's
     kernels)."""
-    from repro_torch import configs
-    cfg = cfg or dataclasses.replace(configs.get("hymba-1.5b"),
-                                     kv_quant_bits=SERVE_BITS)
-    return serve_run(dev, cfg, "13c serve hymba x32", HYMBA_TRAFFIC)
+    return serve_run(dev, cfg or hymba_serve_cfg(), "13c serve hymba x32",
+                     HYMBA_TRAFFIC, keep)
 
 
 def families_card_vs_cpu(dev, archs=FAMILY_ARCHS) -> dict:
@@ -2603,10 +2688,13 @@ def ckpt_cohort_phase(dev, m: int = COHORT_M,
 
 
 def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
-    """14c: phase 7's traffic through a fresh Engine under
-    obs.enable(memory, jsonl, trace): tokens and cache words bitwise
-    phase 7's (`keep`); every step's kernels.dispatch counts equal its
-    launches, 32 / 64 / 96 per decode step; the trace valid; serve.ttft_s
+    """14c: phase 7's traffic through a fresh Engine (its programs made
+    anew) under obs.enable(memory, jsonl, trace): tokens and cache leaves
+    bitwise phase 7's (`keep`); every step's kernels.dispatch counts equal
+    to what its Python ran: its launches, less those its graphs replayed,
+    plus those its captures recorded (a decode step launches 32 / 64 / 96;
+    a replayed one dispatches none); the session's serve.* recompiles
+    equal to the programs' specializations; the trace valid; serve.ttft_s
     for both admission kinds; the kernels' costs equal to phase 3d's bound
     bytes (`serve_times`) at the same shapes. Then OBS_PAIRS decode steps
     of 4 busy slots, alternately under obs.suspended() and obs.use()."""
@@ -2614,13 +2702,14 @@ def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models import model as model_lib
     from repro_torch.serve import Engine, Request, ServeConfig
+    from repro_torch.serve import engine as engine_lib
     cfg = serve_cfg()
-    nl = cfg.num_scanned
-    per_token = {"quant_decode_attention": nl, "quantize_pack": 2 * nl,
-                 "fwht": 3 * nl}
+    per_token = per_token_launches(cfg)
     params = model_lib.init_params(0, cfg, dev)
+    engine_lib._programs.cache_clear()
     eng = Engine(cfg, params, ServeConfig(slots=SERVE_SLOTS,
                                           max_seq=SERVE_MAX_SEQ), device=dev)
+    programs = engine_lib._programs(cfg, SERVE_MAX_SEQ)
     prefix, prompts, tokens = make_traffic(cfg, PHASE7_TRAFFIC)
     obs_dir = OUT_DIR / "obs"
     obs_dir.mkdir(parents=True, exist_ok=True)
@@ -2629,22 +2718,36 @@ def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
                          trace=str(trace_path))
     events = session.memory_events()
 
+    def graph_launches():
+        total = collections.Counter()
+        for p in programs:
+            total.update({("replayed", k): n for k, n in p.replayed.items()})
+            total.update({("captured", k): n for k, n in p.captured.items()})
+        return total
+
     def dispatched(fn):
+        """fn()'s launches; its dispatch events must count the launches
+        its Python ran: eager, or recorded by a capture."""
         n0, before = len(events), ops.launch_counts()
+        g0 = graph_launches()
         fn()
-        after = ops.launch_counts()
+        after, g1 = ops.launch_counts(), graph_launches()
         launches = {k: after[k] - before[k] for k in after
                     if after[k] != before[k]}
+        want = {k: launches.get(k, 0) - g1[("replayed", k)]
+                + g0[("replayed", k)] + g1[("captured", k)]
+                - g0[("captured", k)] for k in after}
+        want = {k: n for k, n in want.items() if n}
         got = {}
         for e in events[n0:]:
             if e["name"] == "kernels.dispatch":
                 if e["attrs"]["path"] != "cuda":
                     raise AssertionError(f"14c: dispatch {e['attrs']}")
                 got[e["attrs"]["op"]] = got.get(e["attrs"]["op"], 0) + 1
-        if got != launches:
+        if got != want:
             raise AssertionError(f"14c: dispatch {got} != launches "
-                                 f"{launches}")
-        return got
+                                 f"{launches} - replayed + captured")
+        return launches
 
     try:
         dispatched(lambda: eng.register_prefix("sys", prefix, prefill=True))
@@ -2656,17 +2759,25 @@ def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
         decode_steps = 0
         while not eng.idle():
             waiting = [r for r in reqs if r.admission is None]
-            got = dispatched(eng.step)
+            launches = dispatched(eng.step)
             if not any(r.admission is not None for r in waiting):
-                if got != per_token:
-                    raise AssertionError(f"14c: decode step dispatch {got}")
+                if launches != per_token:
+                    raise AssertionError(f"14c: decode step launches "
+                                         f"{launches}")
                 decode_steps += 1
         finished = eng.finished
         if {r.rid: r.tokens_out for r in finished} != keep["tokens"]:
             raise AssertionError("14c: tokens differ from phase 7's")
-        for k, v in keep["words"].items():
-            if not torch.equal(eng.state.caches[k], v):
+        for k, v in cache_snapshot(eng.state).items():
+            if not bitwise(v, keep["caches"][k]):
                 raise AssertionError(f"14c: cache {k} differs from phase 7's")
+        made = {n: p._cache_size() for n, p in zip(PROGRAM_NAMES, programs)
+                if p._cache_size()}
+        recompiles = {n: c for n, c in session.recompiles().items()
+                      if n.startswith("serve.")}
+        if recompiles != made:
+            raise AssertionError(f"14c: recompiles {recompiles} != the "
+                                 f"programs' specializations {made}")
         ttft_kinds = {e["attrs"]["admission"] for e in events
                       if e["name"] == "serve.ttft_s"}
         if ttft_kinds != {"cold", "prefix_hit"}:
@@ -2766,12 +2877,13 @@ def serve_obs_phase(dev, keep: dict, serve_times: dict) -> dict:
            "cost_bytes_equal_phase3": checked,
            "ttft_s_median_obs_on": ttft,
            "ttft_s_median_phase7": keep["ttft_s_median"],
+           "recompiles": recompiles,
            "decode_step_ms_median": med,
            "decode_step_ms_on_minus_off": med["on"] - med["off"],
            "gc_pause_ms_per_step": gc_ms, "record_host_us": record_us,
            "rounds_of_arms": OBS_PAIRS}
-    log("[14c] serve x32 under obs: tokens and cache words == phase 7, "
-        "dispatch == launches; " + json.dumps(out))
+    log("[14c] serve x32 under obs: tokens and cache leaves == phase 7, "
+        "dispatch == launches - replayed + captured; " + json.dumps(out))
     del eng, params
     torch.cuda.empty_cache()
     return out
@@ -2927,6 +3039,201 @@ def fed_obs_overhead_phase(dev, m: int = COHORT_M,
            "ratio_on_off": mean["on"] / mean["off"],
            "events": len(session.memory_events())}
     log("[14f] obs overhead on the m %d round loop: %s" % (m, json.dumps(out)))
+    return out
+
+
+# -- phase 15: the captured serve programs (repro_torch.graph) -------------
+GRAPH_ROUNDS = 8          # 15c: rounds of a graph and an eager decode step
+
+
+def graph_vs_eager_phase(dev, cfg, traffic: dict, keep: dict,
+                         label: str) -> dict:
+    """15a: `traffic` again through drive_traffic inside graph.eager(),
+    from the same seeded weights: tokens and every cache leaf bitwise the
+    captured run's (`keep`, phase 7, 13a or 13c); launches checked per
+    step in both runs. Returns both runs' decode step medians and TTFT by
+    admission kind."""
+    from repro_torch import graph
+    from repro_torch.models import model as model_lib
+    params = model_lib.init_params(0, cfg, dev)
+    with graph.eager():
+        run = drive_traffic(dev, cfg, params, traffic, f"{label} eager")
+    if run["out"] != keep["tokens"]:
+        raise AssertionError(f"{label}: eager tokens differ from the "
+                             "captured run's")
+    snap = cache_snapshot(run["eng"].state)
+    differ = [k for k, v in snap.items() if not bitwise(v, keep["caches"][k])]
+    if differ or snap.keys() != keep["caches"].keys():
+        raise AssertionError(f"{label}: cache leaves {differ} differ, graph "
+                             "against eager")
+    out = {"tokens_bitwise": True, "cache_leaves_bitwise": sorted(snap),
+           "decode_step_ms_median": {
+               "graph": keep["decode_step_s_median"] * 1e3,
+               "eager": statistics.median(run["decode_s"]) * 1e3},
+           "ttft_s_median": {"graph": keep["ttft_s_median"],
+                             "eager": run["ttft_s_median"]},
+           "launches_eager": run["counts"]}
+    log(f"[{label}] graph == eager bitwise: {json.dumps(out)}")
+    del run, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_engines_phase(dev, cfg, label: str) -> dict:
+    """15b: two engines over one model and its weights, each serving the
+    same 4 cold COLD_LEN-token prompts (4 new tokens) through the captured
+    programs: the second captures graphs of its own, its tokens and
+    caches equal the first's, and the first's caches are bitwise what they
+    were before the second ran."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import Engine, Request, ServeConfig
+    from repro_torch.serve import engine as engine_lib
+    params = model_lib.init_params(0, cfg, dev)
+    step = engine_lib._programs(cfg, SERVE_MAX_SEQ)[0]
+
+    def serve():
+        eng = Engine(cfg, params, ServeConfig(slots=SERVE_SLOTS,
+                                              max_seq=SERVE_MAX_SEQ),
+                     device=dev)
+        _, _, tokens = make_traffic(cfg, {"prefix": 0, "requests": []})
+        for rid in range(SERVE_SLOTS):
+            eng.submit(Request(rid=rid, prompt=tokens(COLD_LEN),
+                               max_new_tokens=4))
+        return eng, {r.rid: r.tokens_out for r in eng.run_to_completion()}
+
+    first, tokens_first = serve()
+    before = cache_snapshot(first.state)
+    graphs_first = step.graphs()
+    second, tokens_second = serve()
+    after, other = cache_snapshot(first.state), cache_snapshot(second.state)
+    out = {"graphs_decode_step": [graphs_first, step.graphs()],
+           "first_untouched": all(bitwise(after[k], v)
+                                  for k, v in before.items()),
+           "second_equals_first": tokens_first == tokens_second and all(
+               bitwise(other[k], v) for k, v in before.items())}
+    log(f"[{label}] two engines: {json.dumps(out)}")
+    if not (out["first_untouched"] and out["second_equals_first"]
+            and step.graphs() == graphs_first + 1):
+        raise AssertionError(f"{label}: two engines share cache writes")
+    del first, second, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def replay_host_us(program, eng, calls: int = 20) -> float:
+    """Median host µs of the launch alone (`CUDAGraph.replay()`, no
+    synchronize) of `program`'s graph bound to `eng`'s caches; the idle
+    engine's caches take the writes."""
+    (entry,) = [g for g in program._graphs.values()
+                if any(r() is eng.state.caches["k_words"] for r in g.refs)]
+    us = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        entry.graph.replay()
+        us.append((time.perf_counter() - t) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(us)
+
+
+def graph_timing_phase(dev, cfg, label: str, traffic: dict) -> dict:
+    """15c: an engine with 4 busy slots (prompts of traffic["profile_len"]
+    tokens); after one decode step of each arm, GRAPH_ROUNDS rounds of
+    one step with the captured programs and one in graph.eager(), in
+    turns: the host-clock step (synchronized) and the host µs of the
+    decode program's call (no synchronize: what enqueuing the step
+    costs); one step of each arm under torch.profiler (the device's busy
+    ms and ops); the host µs of the decode graph's replay() alone; then
+    `traffic` three times on the same engine, graph (capturing what it
+    lacks), eager, graph again: TTFT by admission kind with warm graphs
+    against eager; the capture seconds of each program of the model."""
+    from repro_torch import graph
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import Engine, Request, ServeConfig
+    from repro_torch.serve import engine as engine_lib
+    params = model_lib.init_params(0, cfg, dev)
+    eng = Engine(cfg, params, ServeConfig(slots=SERVE_SLOTS,
+                                          max_seq=SERVE_MAX_SEQ), device=dev)
+    prefix, prompts, tokens = make_traffic(cfg, traffic)
+    prompt_len = traffic["profile_len"]
+    for rid in range(SERVE_SLOTS):
+        eng.submit(Request(rid=rid, prompt=tokens(prompt_len),
+                           max_new_tokens=2 * GRAPH_ROUNDS + 8))
+    arms = (("graph", contextlib.nullcontext), ("eager", graph.eager))
+    step_ms = {arm: [] for arm, _ in arms}
+    host_us = {arm: [] for arm, _ in arms}
+    program, current = eng._step, [None]
+
+    def timed_program(*args):
+        t = time.perf_counter()
+        out = program(*args)
+        if current[0] is not None:
+            host_us[current[0]].append((time.perf_counter() - t) * 1e6)
+        return out
+
+    eng._step = timed_program
+    eng.step()                        # admissions + the capture
+    with graph.eager():
+        eng.step()
+    for i in range(2 * GRAPH_ROUNDS):
+        arm, ctx = arms[(i + i // 2) % 2]     # g e e g g e e g ...
+        with ctx():
+            torch.cuda.synchronize()
+            current[0] = arm
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            step_ms[arm].append((time.perf_counter() - t) * 1e3)
+            current[0] = None
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    profiled = {}
+    for arm, ctx in arms:
+        with ctx(), torch.profiler.profile(activities=acts) as prof:
+            eng.step()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        profiled[arm] = {
+            "device_busy_ms": sum(e.self_device_time_total for e in kern)
+            / 1e3 if kern else "not measured",
+            "device_ops": sum(e.count for e in kern)}
+    eng.run_to_completion()
+    replay_us = replay_host_us(program, eng)
+    ttft = {}
+    if traffic["prefix"]:
+        eng.register_prefix("sys", prefix, prefill=True)
+    for wave, (arm, ctx) in enumerate(arms + arms[:1]):
+        reqs = [Request(rid=1000 * wave + rid, prompt=p, max_new_tokens=4,
+                        prefix_id=pid)
+                for rid, (p, pid) in enumerate(prompts)]
+        with ctx():
+            t0 = time.perf_counter()
+            for r in reqs:
+                r.submit_time = t0
+                eng.submit(r)
+            eng.run_to_completion()
+        ttft[f"{arm}{wave}"] = {k: statistics.median(
+            r.ttft_s for r in reqs if r.admission == k)
+            for k in sorted({r.admission for r in reqs})}
+    programs = engine_lib._programs(cfg, SERVE_MAX_SEQ)
+    out = {"step_ms_median": {a: statistics.median(v)
+                              for a, v in step_ms.items()},
+           "replay_host_us_median": replay_us,
+           "ttft_s_median_waves": ttft,
+           "step_ms": step_ms,
+           "host_us_per_call_median": {a: statistics.median(v)
+                                       for a, v in host_us.items()},
+           "profiled": profiled,
+           "capture_s": {n: p.capture_s for n, p in zip(PROGRAM_NAMES,
+                                                         programs)},
+           "specializations": {n: p._cache_size() for n, p in
+                               zip(PROGRAM_NAMES, programs)},
+           "graph_pool_bytes": graph_pool_bytes(),
+           "rounds": GRAPH_ROUNDS, "prompt_len": prompt_len}
+    log(f"[{label}] graph against eager: {json.dumps(out)}")
+    del eng, params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3230,11 +3537,12 @@ def main() -> int:
     clock.done("11b-d four ranks sharing the card")
 
     # -- 13. the other block families (models/{moe,ssm,xlstm}) ---------------
-    moe_serve_counts, moe_serve = moe_serve_phase(dev)
+    moe_keep, hymba_keep = {}, {}
+    moe_serve_counts, moe_serve = moe_serve_phase(dev, keep=moe_keep)
     clock.done("13a serve mixtral x4")
     moe_train = moe_train_phase(dev)
     clock.done("13b train mixtral x1")
-    _, hymba_serve = hymba_serve_phase(dev)
+    _, hymba_serve = hymba_serve_phase(dev, keep=hymba_keep)
     clock.done("13c serve hymba x32")
     families = families_card_vs_cpu(dev)
     clock.done("13d reduced families, card vs CPU")
@@ -3249,14 +3557,29 @@ def main() -> int:
         "obs_all_ranks"]
     clock.done("14b checkpointed federation, m 512")
     p14["c"] = serve_obs_phase(dev, serve_keep, serve_times)
-    del serve_keep
-    clock.done("14c serve x32 under obs")
+    clock.done("14c serve x32 under obs (15d: under graphs)")
     p14["d"] = train_obs_phase(dev, cfg4, gc_ef)
     clock.done("14d train x4 under obs")
     p14["e"] = ckpt_train_phase(dev, cfg1, gc_ef)
     clock.done("14e train x1 --ckpt-dir")
     p14["f"] = fed_obs_overhead_phase(dev)
     clock.done("14f obs overhead, m 512 rounds")
+
+    # -- 15. the captured serve programs (repro_torch.graph) ---------------
+    p15 = {"a": {}, "c": {}, "d": "phase14.c"}
+    models15 = (("yi-6b x32", serve_cfg(), PHASE7_TRAFFIC, serve_keep),
+                ("mixtral x4", moe_serve_cfg(), PHASE7_TRAFFIC, moe_keep),
+                ("hymba x32", hymba_serve_cfg(), HYMBA_TRAFFIC, hymba_keep))
+    for key, cfg, traffic, keep in models15:
+        p15["a"][key] = graph_vs_eager_phase(dev, cfg, traffic, keep,
+                                             f"15a {key}")
+    del serve_keep, moe_keep, hymba_keep
+    clock.done("15a graph against eager, three models")
+    p15["b"] = two_engines_phase(dev, serve_cfg(), "15b yi-6b x32")
+    clock.done("15b two engines")
+    for key, cfg, traffic, _ in models15:
+        p15["c"][key] = graph_timing_phase(dev, cfg, f"15c {key}", traffic)
+    clock.done("15c decode step, graph and eager in turns")
 
     # -- 12. result lines -------------------------------------------------------
     names = {
@@ -3301,7 +3624,7 @@ def main() -> int:
                            "serve_hymba_x32": hymba_serve,
                            "card_vs_cpu": families,
                            "train_xlstm_x24": xlstm_train},
-              "phase14": p14, "phase_s": clock.seconds}
+              "phase14": p14, "phase15": p15, "phase_s": clock.seconds}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import graph as graph_lib
 from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
 from repro_torch.codecs import stages as codec_stages
@@ -413,25 +414,31 @@ def init_zero_state(cfg, opt, gc: G.GradCompConfig, group=None,
 # ---------------------------------------------------------------------------
 def make_serve_step(cfg, mesh=None):
     """(params, DecodeState, tokens (B, 1)) → (logits (B, V), state): the
-    eager `decode_step` at one worker. `mesh` keeps the reference's
-    signature; it must be None or a single device. The reference's serve
-    step across workers is GSPMD tensor parallelism over "model", which
-    the port has no counterpart for yet (ROADMAP queue 1 item 7). A device
-    pins the step: it raises on parameters that live elsewhere."""
-    if mesh is None:
-        return functools.partial(decode_lib.decode_step, cfg)
-    if not isinstance(mesh, (str, torch.device)):
+    captured `decode_step` at one worker (`repro_torch.graph.Program`, a
+    CUDA graph per batch shape and bound caches), registered as
+    "dist.serve_step" as the reference registers its jitted step. `mesh`
+    keeps the reference's signature; it must be None or a single device.
+    The reference's serve step across workers is GSPMD tensor parallelism
+    over "model", which the port has no counterpart for yet (ROADMAP queue
+    1 item 4). A device pins the step: it raises on parameters that live
+    elsewhere."""
+    if mesh is not None and not isinstance(mesh, (str, torch.device)):
         raise NotImplementedError(
             f"mesh={mesh!r}: only one device is ported so far; serving "
             "across workers is tensor parallelism over 'model' in the "
-            "reference, not ported yet (ROADMAP queue 1 item 7)")
+            "reference, not ported yet (ROADMAP queue 1 item 4)")
+    step = recompile_lib.register("dist.serve_step", graph_lib.Program(
+        functools.partial(decode_lib.decode_step, cfg),
+        decode_lib.IN_PLACE_ARGS))
+    if mesh is None:
+        return step
     device = resolve_device(mesh)
 
     def serve_step(params, state, tokens):
         if params["embed"].device != device:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"serve step on {device}")
-        return decode_lib.decode_step(cfg, params, state, tokens)
+        return step(params, state, tokens)
 
     return serve_step
 
@@ -443,7 +450,7 @@ def serve_state_specs(cfg, mesh, global_batch: int, seq_len: int):
     if mesh is not None and not isinstance(mesh, (str, torch.device)):
         raise NotImplementedError(
             f"mesh={mesh!r}: serving state across workers is not ported "
-            "yet (ROADMAP queue 1 item 7)")
+            "yet (ROADMAP queue 1 item 4)")
     state = decode_lib.decode_state_specs(cfg, global_batch, seq_len)
     return (_specs(_meta_params(cfg)),
             decode_lib.DecodeState(caches=_specs(state.caches),

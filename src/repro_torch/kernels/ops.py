@@ -16,9 +16,11 @@ the hand-written kernel or "ref" for the plain version, n, forced, always
 False: there is no forcing switch) and records the call with the session's
 cost capture as program `kernels.<op>.<path>`; a CUDA kernel that refuses
 its input adds to `kernels.forced_error` before the error propagates.
-Dispatch is eager, so the counter counts every launch (the reference's
-counts once per trace). With obs disabled this costs one global load per
-call.
+The counter counts where the Python runs: every eager launch, and each
+launch a CUDA graph capture records (`repro_torch.graph`), once, as the
+reference counts once per trace; a replay dispatches nothing, though its
+launches count in `launch_counts`. With obs disabled this costs one
+global load per call.
 """
 from __future__ import annotations
 
@@ -46,6 +48,14 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Add `counts` ({kernel: n}, n may be negative) to the launch counts:
+    a captured graph's replay launches what its capture recorded
+    (`repro_torch.graph`), though no wrapper runs."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def _on_cpu(t: torch.Tensor) -> bool:

@@ -35,11 +35,11 @@ def make_host_group(data: int = 1, model: int = 1):
     """The group of `data` workers: None for one, else the initialized
     default group, which must hold `data` ranks. A model axis > 1 raises:
     the port's train step replicates the params (tensor parallelism over
-    "model" is not ported, ROADMAP queue 1 item 7)."""
+    "model" is not ported, ROADMAP queue 1 item 4)."""
     if model != 1:
         raise NotImplementedError(
             f"model={model}: the port has no 'model' axis (tensor "
-            "parallelism is not ported, ROADMAP queue 1 item 7)")
+            "parallelism is not ported, ROADMAP queue 1 item 4)")
     if data == 1:
         return None
     if not dist.is_initialized():

@@ -5,7 +5,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Without a GPU, the default `--device cuda` raises rather than running on
-the CPU.
+the CPU. The decode loop calls `dist.step.make_serve_step`'s captured
+program: on the card its first call captures a CUDA graph, the later ones
+replay it.
 """
 from __future__ import annotations
 

@@ -31,9 +31,17 @@ a new `pos`), and `scatter_slot` writes into the batched state it is given.
 A state passed to either must not be read again as the old state.
 `extract_slot` returns copies, so a prefix-cache entry never aliases a live
 state.
+
+The serve programs (`decode_step`, `prefill`, `decode_tokens`,
+`prefill_into`, `extend_into`) can be captured as CUDA graphs
+(`repro_torch.graph`): they read no tensor on the host, copy nothing from
+it (the rotation signs are made once per shape and device, outside any
+program) and index slots by a device tensor. `extract_slot` reads a
+position on the host and stays outside every program.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -83,9 +91,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
             qc = kvquant.init_cache(nl, batch, c, cfg.num_kv_heads, cfg.dh,
                                     cfg.kv_quant_bits, device=device)
             caches.update(qc._asdict())
-            caches["signs"] = torch.stack([
-                kvquant.head_signs(0, layer, cfg.num_kv_heads, cfg.dh,
-                                   device=device) for layer in range(nl)])
+            caches["signs"] = _layer_signs(nl, cfg.num_kv_heads, cfg.dh,
+                                           device).clone()
         else:
             for side in ("k", "v"):
                 caches[side] = zeros((nl, batch, c, cfg.num_kv_heads,
@@ -104,6 +111,18 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     return DecodeState(caches=caches,
                        pos=torch.zeros((batch,), dtype=torch.int32,
                                        device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _layer_signs(num_layers: int, num_kv: int, dh: int,
+                 device: torch.device) -> torch.Tensor:
+    """The per-layer rotation signs (L, K, dh), drawn once per shape and
+    device: drawing them copies the threefry key from the host, which a
+    captured program (`repro_torch.graph`) must not do. Each state gets a
+    device copy of its own."""
+    return torch.stack([kvquant.head_signs(0, layer, num_kv, dh,
+                                           device=device)
+                        for layer in range(num_layers)])
 
 
 def decode_state_specs(cfg: ModelConfig, batch: int,
@@ -204,6 +223,13 @@ def block_decode(cfg: ModelConfig, p: dict, cache: dict, h: torch.Tensor,
     return h
 
 
+# The arguments a captured serve program binds by pointer (keystr prefixes
+# of its argument tuple, see `repro_torch.graph.Program`): the parameters,
+# and the caches of the batched state that decode_step, prefill_into and
+# extend_into write in place.
+IN_PLACE_ARGS = ("[0]", "[1].caches")
+
+
 # ---------------------------------------------------------------------------
 # Full-stack decode step
 # ---------------------------------------------------------------------------
@@ -260,27 +286,32 @@ SHARED_CACHE_KEYS = frozenset({"signs"})
 
 
 def scatter_slot(batched: DecodeState, single: DecodeState,
-                 slot: int) -> DecodeState:
+                 slot) -> DecodeState:
     """Write the batch-1 `single` into slot `slot` of `batched`, in place.
 
     Positional leaves of `single` may be trimmed to a prefix length C' <= C
     (see `extract_slot`); the slot's remaining C - C' positions are zeroed,
     so the result is bitwise the state a fresh batch-1 prefill of the same
     tokens would produce — the prefix-cache bit-exactness contract.
-    Per-slot, position-free leaves (recurrent states) are written whole."""
-    slot = int(slot)
+    Per-slot, position-free leaves (recurrent states) are written whole.
+
+    `slot` is an int or a 0-d integer tensor on the state's device (a
+    captured program's traced slot): the write indexes by a device tensor
+    either way, so a graph never bakes a slot in."""
+    dev = batched.pos.device
+    idx = (slot.reshape(1).to(torch.long) if isinstance(slot, torch.Tensor)
+           else torch.full((1,), int(slot), dtype=torch.long, device=dev))
     for name, b in batched.caches.items():
         if name in SHARED_CACHE_KEYS:
             continue
-        s = single.caches[name]
-        if name in POSITIONAL_CACHE_KEYS:
-            n = s.shape[2]
-            b[:, slot, :n] = s[:, 0]
-            b[:, slot, n:] = 0
-        else:
-            b[:, slot] = s[:, 0]
+        s = single.caches[name].to(b.dtype)
+        if name in POSITIONAL_CACHE_KEYS and s.shape[2] < b.shape[2]:
+            pad = s.new_zeros(s.shape[:2] + (b.shape[2] - s.shape[2],)
+                              + s.shape[3:])
+            s = torch.cat([s, pad], dim=2)
+        b.index_copy_(1, idx, s)
     pos = batched.pos.clone()
-    pos[slot] = single.pos[0]
+    pos.index_copy_(0, idx, single.pos[:1])
     return DecodeState(caches=batched.caches, pos=pos)
 
 
@@ -317,16 +348,16 @@ def expand_state(cfg: ModelConfig, single: DecodeState,
 
 
 def prefill_into(cfg: ModelConfig, params: dict, batched: DecodeState,
-                 tokens: torch.Tensor, slot: int, max_seq: int):
+                 tokens: torch.Tensor, slot, max_seq: int):
     """Cold admission: batch-1 prefill of `tokens` (S,) scattered into slot
-    `slot` of `batched`. Returns (new batched state, last-token logits
-    (V,))."""
+    `slot` (an int or a 0-d tensor) of `batched`. Returns (new batched
+    state, last-token logits (V,))."""
     logits, single = prefill(cfg, params, tokens[None, :], max_seq)
     return scatter_slot(batched, single, slot), logits[0]
 
 
 def extend_into(cfg: ModelConfig, params: dict, batched: DecodeState,
-                entry: DecodeState, tokens: torch.Tensor, slot: int,
+                entry: DecodeState, tokens: torch.Tensor, slot,
                 max_seq: int):
     """Prefix admission: re-seat the (trimmed) batch-1 `entry` in fresh
     full-size caches, decode the (S,) prompt continuation, and scatter the

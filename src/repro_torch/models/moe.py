@@ -45,7 +45,10 @@ def route(flat: torch.Tensor, router: torch.Tensor, k: int,
     capacity = max(1, int(capacity_factor * t * k / e))
     # rank of each assignment within its expert (stable sort by expert id)
     order = torch.sort(flat_e, stable=True).indices
-    counts = torch.bincount(flat_e, minlength=e)
+    # bincount's CUDA kernel reads the largest id back to the host, which a
+    # captured graph cannot; a scatter-add counts the same integers
+    counts = torch.zeros(e, dtype=torch.int64, device=flat.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     ar = torch.arange(n, device=flat.device)
     rank_sorted = ar - starts[flat_e[order]]

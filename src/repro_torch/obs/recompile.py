@@ -8,11 +8,12 @@ reference's name ("fed.round.cohort", "dist.step", "serve.decode_step", …);
 `counts()` sums live cache sizes per name, so a snapshot/delta pair
 attributes new specializations to whatever ran in between.
 
-The port's programs run eagerly and have no `_cache_size`: `cache_size`
-gives None for them, as the reference's does for a callable without cache
-introspection, and they count 0. A program that captures graphs (a CUDA
-graph per shape) gives itself a `_cache_size()`, and its count appears
-here with no change to this module.
+The serve programs ("serve.*", "dist.serve_step") are
+`repro_torch.graph.Program`s, CUDA graphs on the card: their
+`_cache_size()` counts specializations as the reference's jitted
+programs do. The port's other programs run eagerly and have no
+`_cache_size`: `cache_size` gives None for them, as the reference's does
+for a callable without cache introspection, and they count 0.
 
 Registration is always on (one dict insert per factory call, never on
 the step path) and holds only weakrefs. An active `repro_torch.obs`

@@ -24,12 +24,16 @@ that MISSES run the same two computations — `prefill(prefix)` then
 K/V, positions and greedy tokens are bitwise identical;
 `verify_prefix_contract` checks exactly this.
 
-Where the reference jits five programs per (model, max_seq), the port calls
-the same decode functions eagerly; there is nothing to compile. The five
-programs are still made once per (model, max_seq) and registered with
-`repro_torch.obs.recompile` under the reference's names. The engine runs
-on `cuda` unless it is given `device="cpu"`, and the parameters must
-already live there.
+Where the reference jits five programs per (model, max_seq), the port
+makes five `repro_torch.graph.Program`s, registered with
+`repro_torch.obs.recompile` under the reference's names and shared by
+every engine over that model: on the card each specialization (one per
+prompt length for the admissions and the prefill, one per slot count for
+the decode step) is captured once as a CUDA graph and replayed; the
+parameters and the engine's caches are bound by pointer, so each engine
+replays graphs of its own. `repro_torch.graph.eager()` runs them as plain
+calls. The engine runs on `cuda` unless it is given `device="cpu"`, and
+the parameters must already live there.
 
 Observability (zero-overhead when disabled, bitwise the same tokens either
 way), with the reference's names: queue depth / occupancy gauges, prefill
@@ -48,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import graph as graph_lib
 from repro_torch import resolve_device
 from repro_torch.models import decode as decode_lib
 from repro_torch.obs import core as obs_lib
@@ -115,20 +120,30 @@ class EngineExhausted(RuntimeError):
 def _programs(cfg, max_seq: int):
     """The engine's five programs per (model config, max_seq), shared by
     every engine over that model, as the reference shares its compiled
-    ones."""
-    step = recompile_lib.register(
-        "serve.decode_step", functools.partial(decode_lib.decode_step, cfg))
-    prefill = recompile_lib.register(
-        "serve.prefill", functools.partial(decode_lib.prefill, cfg,
-                                           max_seq=max_seq))
-    extend = recompile_lib.register(
-        "serve.extend", functools.partial(decode_lib.decode_tokens, cfg))
-    admit_cold = recompile_lib.register(
-        "serve.admit_cold", functools.partial(decode_lib.prefill_into, cfg,
-                                              max_seq=max_seq))
-    admit_prefix = recompile_lib.register(
-        "serve.admit_prefix", functools.partial(decode_lib.extend_into, cfg,
-                                                max_seq=max_seq))
+    ones. The parameters are bound by pointer in each; the decode step
+    and the admissions also bind the batched state's caches, which they
+    write in place. Everything else (tokens, positions, the slot, a
+    prefix entry, the batch-1 state `extend` grows) is copied in."""
+    def program(name, fn, bound):
+        return recompile_lib.register(name, graph_lib.Program(fn, bound))
+
+    step = program("serve.decode_step",
+                   functools.partial(decode_lib.decode_step, cfg),
+                   decode_lib.IN_PLACE_ARGS)
+    prefill = program("serve.prefill",
+                      functools.partial(decode_lib.prefill, cfg,
+                                        max_seq=max_seq), ("[0]",))
+    extend = program("serve.extend",
+                     functools.partial(decode_lib.decode_tokens, cfg),
+                     ("[0]",))
+    admit_cold = program("serve.admit_cold",
+                         functools.partial(decode_lib.prefill_into, cfg,
+                                           max_seq=max_seq),
+                         decode_lib.IN_PLACE_ARGS)
+    admit_prefix = program("serve.admit_prefix",
+                           functools.partial(decode_lib.extend_into, cfg,
+                                             max_seq=max_seq),
+                           decode_lib.IN_PLACE_ARGS)
     return step, prefill, extend, admit_cold, admit_prefix
 
 

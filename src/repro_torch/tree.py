@@ -109,9 +109,15 @@ def flatten_with_path(tree, is_leaf=None) -> tuple:
     of key strings, `['key']` for a dict key, `[i]` for a list or tuple
     index, `.field` for a NamedTuple field (`keystr` joins them)."""
     flat, spec = flatten(tree, is_leaf)
+    return list(zip(spec_paths(spec), flat)), spec
+
+
+def spec_paths(spec) -> list:
+    """The leaf paths of `spec`, in `flatten` order (as
+    `flatten_with_path` gives them)."""
     paths: list = []
     _paths(spec, (), paths)
-    return list(zip(paths, flat)), spec
+    return paths
 
 
 def _paths(spec, prefix: tuple, out: list) -> None:

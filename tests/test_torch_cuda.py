@@ -317,6 +317,77 @@ def test_cuda_sparsify_then_embed_matches_cpu(cuda, mode):
 
 
 # ---------------------------------------------------------------------------
+# Captured serve programs (repro_torch.graph): CUDA graphs against eager
+# ---------------------------------------------------------------------------
+def _serve_programs_run(cfg, params, dev):
+    """The engine's programs on a fresh 2-slot state: two cold admissions
+    of one length (the second replays with another slot), 4 decode steps,
+    two prefix admissions of one entry and length, 4 more steps. Returns
+    (every logits tensor, the final caches and positions, the launches)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import decode as D
+    from repro_torch.serve import engine as E
+
+    E._programs.cache_clear()
+    step, _, _, admit_cold, admit_prefix = E._programs(cfg, 40)
+    st = D.init_decode_state(cfg, 2, 40, device=dev)
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g,
+                             dtype=torch.int32).to(dev) for n in (6, 6, 3, 3)]
+    before = kops.launch_counts()
+    logits = []
+
+    def decode(st, steps):
+        tok = torch.stack([x.argmax() for x in logits[-2:]]).to(
+            torch.int32)[:, None]
+        for _ in range(steps):
+            lg, st = step(params, st, tok)
+            logits.append(lg)
+            tok = D.greedy_token(lg)
+        return st
+
+    for slot in (0, 1):
+        st, lg = admit_cold(params, st, prompts[slot], slot)
+        logits.append(lg)
+    st = decode(st, 4)
+    entry = D.extract_slot(st, 1)
+    for slot in (0, 1):
+        st, lg = admit_prefix(params, st, entry, prompts[2 + slot], slot)
+        logits.append(lg)
+    st = decode(st, 4)
+    torch.cuda.synchronize()
+    after = kops.launch_counts()
+    return ([x.cpu() for x in logits],
+            {k: v.cpu() for k, v in st.caches.items()}, st.pos.cpu(),
+            {k: after[k] - before[k] for k in after})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "hymba-1.5b"])
+def test_cuda_graphs_match_the_eager_arm(cuda, arch):
+    """The reduced yi-6b and hymba through the 8-bit cache: the captured
+    programs give the eager arm's logits, cache words and positions
+    bitwise, and the same kernel launch counts."""
+    import dataclasses
+    from repro_torch import configs, graph
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(configs.get_reduced(arch), kv_quant_bits=8)
+    params = model.init_params(0, cfg, cuda)
+    got = _serve_programs_run(cfg, params, cuda)
+    with graph.eager():
+        want = _serve_programs_run(cfg, params, cuda)
+    assert len(got[0]) == len(want[0]) == 12
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    for name, x in want[1].items():
+        assert torch.equal(got[1][name].view(torch.uint8),
+                           x.view(torch.uint8)), name
+    assert torch.equal(got[2], want[2])
+    assert got[3] == want[3] and got[3]["quant_decode_attention"] > 0
+
+
+# ---------------------------------------------------------------------------
 # Two gloo ranks sharing the card (repro_torch.dist, repro_torch.fed.mesh)
 # ---------------------------------------------------------------------------
 def _rank_two_workers(rank: int, world: int, init: str, out_dir: str):

@@ -166,7 +166,7 @@ def test_extract_then_scatter_is_identity(base, bits, slot_from, slot_to):
 def test_serve_step_refuses_a_mesh_and_other_blocks(base):
     _, _, tparams = base
     _, tcfg = _configs(base, None)
-    assert TS.make_serve_step(tcfg).func is TD.decode_step
+    assert TS.make_serve_step(tcfg).fn.func is TD.decode_step
     st = TD.init_decode_state(tcfg, 1, 8, device="cpu")
     tok = torch.zeros((1, 1), dtype=torch.int32)
     logits, _ = TS.make_serve_step(tcfg, "cpu")(tparams, st, tok)

@@ -18,7 +18,10 @@ every event but the kernels' is equal, the integer counters are equal in
 value, the kernels' (name, attribute keys) are equal as a set, and the
 programs registered are the same names. Events are compared up to the
 session's close (the gauges `close` derives from the cost model differ by
-design: eager torch has no compiler cost analysis). `kernels.dispatch`
+design: eager torch has no compiler cost analysis). The serve
+programs' specializations equal the reference's for the same workload
+(they are captured programs); the fed and dist programs count none, as
+they still run eagerly. `kernels.dispatch`
 counts every launch in the port; here, on the CPU, it is held against the
 calls of each public `kernels.ops` function, and on the card (chip_smoke
 phase 14) against `ops.launch_counts()`.
@@ -752,8 +755,16 @@ def test_kernel_events_equal_the_reference_and_count_every_call(runs,
 def test_registered_programs_equal_the_reference(runs, workload):
     ours, theirs = runs[workload]["on"][2], runs[workload]["ref"][2]
     assert ours and ours == theirs
-    assert all(recompile.counts()[name] == 0 for name in ours)
+    # the serve programs are captured (repro_torch.graph) and count the
+    # reference's specializations for the same workload; the fed and dist
+    # programs still run eagerly (ROADMAP queue 1) and count none
     session = runs[workload]["on"][3]
+    got = session.summary()["recompiles"]
+    want = runs[workload]["ref"][3].summary()["recompiles"]
+    assert {name: got.get(name, 0) for name in ours} == {
+        name: want.get(name, 0) if name.startswith("serve.") else 0
+        for name in ours}
+    assert (workload == "serve") == any(got.get(name) for name in ours)
     programs = session.costs()["programs"]
     for name, prog in programs.items():
         available = {s["available"] for s in prog["specializations"]}
