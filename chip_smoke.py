@@ -224,12 +224,38 @@ prints its seconds):
      (graph, eager, graph: TTFT by admission kind with warm graphs), each
      program's capture seconds and the graph pool's bytes; d. is 14c
      (obs under graphs);
+ 16. serving across workers (the "model" axis: dist.step.make_serve_step
+     on a launch.mesh.make_host_group mesh, tensor parallelism over
+     gloo ranks sharing the card), after phase 15; the one-worker runs
+     first in this process (the serve step's graph, the same seeded
+     weights and prompts), then a world of 2 and a world of 4 ranks of
+     this script (--phase 16; logs in OUT_DIR/tp/): a. yi-6b at full
+     width and all 32 layers, 4 slots, model 2, with the f32 and the
+     8-bit cache: each rank draws its slices leaf by leaf and holds
+     exactly the spec's param bytes; a 16-token prompt, then 16 tokens:
+     with the f32 cache its own greedy ones, equal to one worker's,
+     logits within TP_LOGIT_TOL; with the 8-bit cache one worker's
+     (phase 16's comment says why), logits within TP_CODE_LOGIT_TOL, a
+     greedy choice differing only where one worker's top-2 margin is
+     within TP_NEAR_TIE, and then its own greedy ones, equal to one
+     worker's up to each slot's first differing choice, which must be
+     such a near-tie (its step and margin printed), quant_decode_attention,
+     quantize_pack and fwht launching 32, 64, 96 times per step on every
+     rank; s/step, seconds in the collectives per step, peak memory per
+     rank, and one worker's own logit shift with wo one ulp away; b. the
+     same at model 4, cut to 8 layers; c. the reduced mixtral
+     (expert-parallel), arctic, hymba and xlstm at model 2 and the
+     reduced yi-6b and mixtral (its routing gathered over the data
+     group) at (data 2, model 2), 8-bit: greedy tokens equal,
+     logits within SMALL_LOGIT_TOL; d. the reduced yi-6b trained 2 steps
+     of allgather_packed with EF at (2, 2) and at (2, 1): every rank's
+     whole params and AdamW state bitwise equal;
  12. print {"kernels": [...]} and, last, the device line.
 
 Without CUDA it exits non-zero before printing any result. Nothing here
 imports JAX or the JAX package. `python3 chip_smoke.py --rank R --world 4
---init URL --out DIR` is one rank of phase 11 b-d, which the script starts
-itself.
+--init URL --out DIR [--phase 16]` is one rank of phase 11 b-d (or 16),
+which the script starts itself.
 """
 from __future__ import annotations
 
@@ -249,10 +275,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
-
-# H100 SXM data-sheet peaks.
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOP_S = 67e12
 
 # the sweep grids (bits, N, rows, modes, dh, C, G) and ATTN_TOL live in
 # repro_torch/kernels/checks.py, shared with tests/test_torch_cuda.py
@@ -347,8 +369,12 @@ def host_us(fn, calls: int = 1000) -> float:
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple:
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_S * 1e3
+    """The least time of a call: its bytes at the card's memory rate or
+    its operations at its f32 rate, whichever is longer (kernels/cost.py's
+    H100 SXM data-sheet peaks)."""
+    from repro_torch.kernels import cost
+    t_bytes = nbytes / cost.PEAK_BYTES_S * 1e3
+    t_ops = flops / cost.PEAK_F32_FLOP_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -928,13 +954,14 @@ def moe_serve_phase(dev, cfg=None, keep=None) -> tuple:
     the 8-bit cache with phase 7's traffic (serve_run). With 4 slots the
     decode capacity is 1 token per expert, so tokens are dropped (GShard's
     rule, as in the reference)."""
+    from repro_torch.kernels import cost
     cfg = cfg or moe_serve_cfg()
     counts, numbers = serve_run(dev, cfg, "13a serve mixtral x4",
                                 PHASE7_TRAFFIC, keep)
     # every decode step reads every weight once (the MoE runs all experts
     # on its (E, C, d) buffer)
-    numbers["weight_read_floor_ms"] = (numbers["params"] * 4 / PEAK_BYTES_S
-                                       * 1e3)
+    numbers["weight_read_floor_ms"] = (numbers["params"] * 4
+                                       / cost.PEAK_BYTES_S * 1e3)
     return counts, numbers
 
 
@@ -2433,15 +2460,19 @@ def rank_mesh_obs(make, cfg, recs, server) -> dict:
 
 
 def rank_main(argv) -> int:
-    """One rank of phase 11 b-d (this script run with --rank)."""
+    """One rank of phase 11 b-d, or with `--phase 16` of phase 16 (this
+    script run with --rank)."""
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--init", required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--phase", default="11", choices=("11", "16"))
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
+    if args.phase == "16":
+        return tp_rank_main(args)
     import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.launch import mesh
@@ -2518,6 +2549,417 @@ def ranks_phase() -> dict:
     summary["d"]["obs_all_ranks"] = [r["d"]["obs"] for r in ranks]
     for k, v in summary.items():
         log(f"[dist {k}] " + json.dumps(v))
+    return summary
+
+
+# -- phase 16: serving across workers (the "model" axis) ---------------------
+# Ranks of this script (--phase 16) share the card over gloo, as 11b's do;
+# the one-worker runs they are held against run first in this process and
+# are handed over in a temporary directory. a. yi-6b at full width and all
+# 32 layers, 4 slots, model 2, with the f32 and the 8-bit cache; b. the
+# same cut to 8 layers at model 4; c. the reduced mixtral (expert-
+# parallel), arctic, hymba and xlstm at model 2 (8-bit cache), the reduced
+# yi and mixtral at (data 2, model 2); d. the reduced yi-6b trained 2 steps
+# (allgather_packed with EF) at (2, 2) and at (2, 1).
+#
+# A row-split product sums the ranks' partials in gloo's order and a
+# column-split one runs another GEMM shape, so the ranks' activations
+# differ from one worker's in their last bits. With the f32 cache and the
+# reduced models that stays within TP_LOGIT_TOL / SMALL_LOGIT_TOL and the
+# greedy tokens are one worker's. With the 8-bit cache at full width a K/V
+# value on a bin edge lands in the neighbouring code (several a step), and
+# the logits move by up to a few hundredths (one worker against itself
+# with wo one ulp away moves as much: `sensitivity`). Those runs are fed
+# one worker's tokens, their logits held within TP_CODE_LOGIT_TOL, and a
+# greedy choice may differ only where one worker's top-2 margin is within
+# TP_NEAR_TIE. They are then run on their own greedy tokens, which must
+# equal one worker's up to each slot's first differing choice, and that
+# choice must be such a near-tie; its step and margin are printed.
+TP_SLOTS, TP_PROMPT, TP_NEW, TP_MAX_SEQ = 4, 16, 16, 64
+TP_FAMILIES = ("mixtral-8x22b", "arctic-480b", "hymba-1.5b", "xlstm-350m")
+TP_TRAIN_BATCH, TP_TRAIN_SEQ = 8, 32
+TP_LOGIT_TOL = 1e-3
+# a tenth of the logits' spread at full width (std ~1.28: an RMS-normed h
+# against head weights N(0, 0.02^2) over 4096); a wrong slice or a missing
+# all-reduce moves them by O(1)
+TP_CODE_LOGIT_TOL = 0.13
+# a top-2 margin this small is a near-tie: one worker's own logits move by
+# 0.0588 at yi-6b x32, 8-bit, when every wo value moves one ulp (this
+# phase's `sensitivity` run on an NVIDIA H100 80GB HBM3 at 700 W)
+TP_NEAR_TIE = 0.06
+
+
+def tp_cfgs() -> dict:
+    """{label: (cfg, data, model, world, forced)} of phase 16's serve runs;
+    `forced`: fed one worker's tokens, then on its own (module comment
+    above)."""
+    from repro_torch import configs
+    q8 = serve_cfg()
+    f32 = dataclasses.replace(q8, kv_quant_bits=None)
+    out = {"a yi-6b x32 f32": (f32, 1, 2, 2, False),
+           "a yi-6b x32 8-bit": (q8, 1, 2, 2, True),
+           "b yi-6b x8 f32": (dataclasses.replace(f32, num_layers=8),
+                              1, 4, 4, False),
+           "b yi-6b x8 8-bit": (dataclasses.replace(q8, num_layers=8),
+                                1, 4, 4, True)}
+    for arch in TP_FAMILIES:
+        cfg = configs.get_reduced(arch)
+        if cfg.block != "xlstm_pair":
+            cfg = dataclasses.replace(cfg, kv_quant_bits=SERVE_BITS)
+        out[f"c {arch}"] = (cfg, 1, 2, 2, False)
+    for arch in ("yi-6b", "mixtral-8x22b"):
+        out[f"c {arch} (2, 2)"] = (dataclasses.replace(
+            configs.get_reduced(arch), kv_quant_bits=SERVE_BITS), 2, 2, 4,
+            False)
+    return out
+
+
+def tp_launches(cfg) -> dict:
+    """The serve kernels' launches per decode step on every rank: one
+    worker's (every rank attends with all heads)."""
+    if not cfg.kv_quant_bits or cfg.block == "xlstm_pair":
+        return {k: 0 for k in per_token_launches(cfg)}
+    return per_token_launches(cfg)
+
+
+def tp_greedy(step, params, state, prompt, on_step=None, fed=None):
+    """The prompt stepped through `step`, then TP_NEW tokens: its own
+    greedy ones, or `fed` (b, TP_NEW) when given. Returns (logits (steps,
+    b, V), its greedy choices (b, TP_NEW + 1)); on_step(i, fn) runs step
+    i's call `fn()` (to time and count it)."""
+    from repro_torch.models import decode as decode_lib
+    logits, toks = [], []
+    box = {"state": state}
+
+    def run(tok):
+        def fn():
+            lg, box["state"] = step(params, box["state"], tok)
+            return lg
+        return fn() if on_step is None else on_step(len(logits), fn)
+
+    for t in range(prompt.shape[1]):
+        logits.append(run(prompt[:, t:t + 1]))
+    for k in range(TP_NEW):
+        toks.append(decode_lib.greedy_token(logits[-1]))
+        logits.append(run(toks[-1] if fed is None else fed[:, k:k + 1]))
+    toks.append(decode_lib.greedy_token(logits[-1]))
+    return torch.stack(logits), torch.cat(toks, 1)
+
+
+def tp_prompt(cfg):
+    gen = torch.Generator()
+    gen.manual_seed(16)
+    return torch.randint(0, cfg.vocab_size, (TP_SLOTS, TP_PROMPT),
+                         generator=gen, dtype=torch.int32)
+
+
+def tp_one_worker(dev, cfg, path, sensitivity: bool = False) -> dict:
+    """The one-worker serve step (`make_serve_step(cfg)`, a CUDA graph)
+    fed the prompt and its greedy tokens from the seeded whole init;
+    its logits and tokens saved to `path` for the ranks. With
+    `sensitivity`, the same run fed the same tokens with every wo value
+    one ulp further from zero: its largest logit gap."""
+    from repro_torch.dist import step as step_lib
+    from repro_torch.models import decode as decode_lib
+    from repro_torch.models import model as model_lib
+    params = model_lib.init_params(0, cfg, dev)
+    step = step_lib.make_serve_step(cfg)
+    times = []
+
+    def timed_step(i, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return lg
+
+    def state():
+        return decode_lib.init_decode_state(cfg, TP_SLOTS, TP_MAX_SEQ,
+                                            device=dev)
+
+    prompt = tp_prompt(cfg)
+    logits, tokens = tp_greedy(step, params, state(), prompt.to(dev),
+                               timed_step)
+    torch.save({"logits": logits.cpu(), "tokens": tokens.cpu(),
+                "prompt": prompt}, path)
+    out = {"step_s_median": statistics.median(times[1:]),
+           "param_bytes": sum(x.numel() * x.element_size()
+                              for x in tree_leaves(params))}
+    if sensitivity:
+        wo = params["blocks"]["wo"]
+        wo.copy_(torch.nextafter(wo, wo * 2))
+        moved, _ = tp_greedy(step, params, state(), prompt.to(dev),
+                             fed=tokens[:, :TP_NEW])
+        out["wo_one_ulp_logit_gap"] = float((moved - logits).abs().max())
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def tree_leaves(tree):
+    from repro_torch import tree as tree_lib
+    return tree_lib.leaves(tree)
+
+
+def tp_own_greedy(differ, margin, gaps) -> dict:
+    """A run on its own greedy tokens against one worker's: per slot, the
+    first differing choice (None: all equal), one worker's top-2 margin
+    there, and the largest logit gap up to the step that made it (after
+    it the slot is fed other tokens); `ok` if every first difference is a
+    near-tie and those gaps are within TP_CODE_LOGIT_TOL."""
+    slots, ok = [], True
+    for s in range(differ.shape[0]):
+        hit = differ[s].nonzero()
+        j = int(hit[0]) if len(hit) else None
+        upto = TP_PROMPT + (differ.shape[1] if j is None else j)
+        gap = float(gaps[:upto, s].max())
+        m = None if j is None else float(margin[s, j])
+        ok = ok and gap <= TP_CODE_LOGIT_TOL and (m is None or
+                                                  m <= TP_NEAR_TIE)
+        slots.append([j, m, gap])
+    return {"ok": ok, "per slot [first differing choice, one worker's "
+                   "margin there, max |logit gap| up to it]": slots}
+
+
+def tp_serve_rank(dev, label, cfg, data, model, forced, tmp) -> dict:
+    """One rank of a phase 16 serve run: its slices drawn leaf by leaf,
+    their bytes against the spec's, the prompt and TP_NEW tokens (its own
+    greedy ones; when `forced`, one worker's first and then its own)
+    through the tensor-parallel serve step with per-step seconds, seconds
+    in the collectives and launches; tokens and logits against the
+    one-worker run's."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist import step as step_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.models import decode as decode_lib
+    tmesh = mesh.make_host_group(data, model)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state = step_lib.init_serve_state(cfg, tmesh, TP_SLOTS,
+                                              TP_MAX_SEQ, seed=0, device=dev)
+    held = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    spec = sum(s.nbytes(tmesh) for s in tree_leaves(step_lib.serve_state_specs(
+        cfg, tmesh, TP_SLOTS, TP_MAX_SEQ)[0]))
+    if held != spec:
+        raise AssertionError(f"16 {label}: a rank holds {held} B of params, "
+                             f"the spec {spec}")
+    base = torch.load(Path(tmp) / f"{label}.pt")
+    rows = TP_SLOTS // data
+    lo = tmesh.data_index * rows
+    want_tokens = base["tokens"][lo:lo + rows]
+    want_logits = base["logits"][:, lo:lo + rows]
+    steps = []
+    want = tp_launches(cfg)
+
+    def counted(i, fn):
+        ops.reset_launch_counts()
+        sharding.reset_transport_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        counts = {k: v for k, v in ops.launch_counts().items() if k in want}
+        if counts != want:
+            raise AssertionError(f"16 {label}: step {i} launched {counts}, "
+                                 f"want {want}")
+        tc = sharding.transport_counts()
+        steps.append({"s": s, "collective_s": sum(
+            v["seconds"] for v in tc.values()), "calls": sum(
+            v["calls"] for v in tc.values())})
+        return lg
+
+    step = step_lib.make_serve_step(cfg, tmesh)
+    prompt = base["prompt"][lo:lo + rows].to(dev)
+    logits, tokens = tp_greedy(
+        step, params, state, prompt, counted,
+        fed=want_tokens[:, :TP_NEW].to(dev) if forced else None)
+    tokens = tokens.cpu()
+    gaps = (logits.cpu() - want_logits).abs().amax(dim=(1, 2))
+    # one worker's top-2 margin at each greedy choice, per slot
+    top2 = want_logits[TP_PROMPT - 1:].topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).T            # (rows, TP_NEW + 1)
+    differ = tokens != want_tokens
+    out = {"param_bytes": held, "forced": forced,
+           "max_abs_logit_gap": float(gaps.max()),
+           "logit_gap_per_step": [float(g) for g in gaps],
+           "greedy_choices_differing": int(differ.sum()),
+           "step_s": [s["s"] for s in steps],
+           "collective_s": [s["collective_s"] for s in steps],
+           "collectives_per_step": steps[0]["calls"],
+           "launches_per_step": want}
+    if forced:
+        near_tie = margin <= TP_NEAR_TIE
+        out["differing_margins"] = [float(m) for m in margin[differ]]
+        fine = not bool((differ & ~near_tie).any()) and (
+            out["max_abs_logit_gap"] <= TP_CODE_LOGIT_TOL)
+        own_logits, own_tokens = tp_greedy(
+            step, params, decode_lib.init_decode_state(
+                cfg, rows, TP_MAX_SEQ, device=dev), prompt, counted)
+        own_gaps = (own_logits.cpu() - want_logits).abs().amax(dim=-1)
+        out["own_greedy"] = tp_own_greedy(own_tokens.cpu() != want_tokens,
+                                          margin, own_gaps)
+        fine = fine and out["own_greedy"]["ok"]
+    else:
+        fine = not bool(differ.any()) and (
+            out["max_abs_logit_gap"] <= (TP_LOGIT_TOL if cfg.kv_quant_bits
+                                         is None else SMALL_LOGIT_TOL))
+    out["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    if not fine:
+        raise AssertionError(f"16 {label}: " + json.dumps(out))
+    return out
+
+
+def tp_train_rank(dev, data, model, rank, tmp) -> dict:
+    """16d on one rank: the reduced yi-6b, allgather_packed with EF,
+    AdamW and clip 1.0, 2 steps at (data, model); the whole params and
+    optimizer state saved for the parent's comparison."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import batch_for_shape
+    from repro_torch.dist import gradcomp as G
+    from repro_torch.dist import step as step_lib
+    from repro_torch.launch import mesh
+    from repro_torch.optimizer import optim
+    tmesh = mesh.make_host_group(data, model)
+    cfg = configs.get_reduced("yi-6b")
+    opt = optim.adamw(optim.warmup_cosine(3e-4, 1, 10), weight_decay=0.1)
+    gc = G.GradCompConfig()
+    st = step_lib.init_train_state(cfg, opt, gc, tmesh, seed=0, device=dev)
+    fn = step_lib.make_train_step(cfg, opt, gc, tmesh, clip_norm=1.0)
+    losses = []
+    for s in range(2):
+        *st, met = fn(*st, batch_for_shape(cfg, TP_TRAIN_BATCH, TP_TRAIN_SEQ,
+                                           s, 0, device=dev))
+        losses.append(float(met["loss"]))
+    whole = step_lib.whole_train_state(cfg, tmesh, st[0], st[1])
+    torch.save([x.detach().cpu() for x in tree_leaves(whole)],
+               Path(tmp) / f"train_{data}x{model}_r{rank}.pt")
+    return {"losses": losses}
+
+
+def tp_rank_main(args) -> int:
+    """One rank of phase 16 (a world of 2: 16a, 16c at model 2, 16d at
+    (2, 1); of 4: 16b, 16c's (2, 2), 16d at (2, 2))."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    from repro_torch.models import model as model_lib
+    model_lib.disable_tf32()
+    group, dev = mesh.init_workers(args.rank, args.world, args.init,
+                                   device="cuda")
+    tmp = Path(args.out).parent / "tp_in"
+    out = {"rank": args.rank, "backend": dist.get_backend(group),
+           "serve": {}}
+    try:
+        for label, (cfg, data, model, world, forced) in tp_cfgs().items():
+            if world != args.world:
+                continue
+            # a failed check is reported to the parent, which raises once
+            # every run has reported
+            try:
+                out["serve"][label] = tp_serve_rank(dev, label, cfg, data,
+                                                    model, forced, tmp)
+            except AssertionError as e:
+                out["serve"][label] = {"error": str(e)}
+            torch.cuda.empty_cache()
+        data, model = (2, 1) if args.world == 2 else (2, 2)
+        out["train"] = tp_train_rank(dev, data, model, args.rank, tmp)
+    finally:
+        dist.destroy_process_group()
+    Path(args.out, f"rank{args.rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def tp_phase(dev) -> dict:
+    """Phase 16: the one-worker runs here, then a world of 2 and a world
+    of 4 ranks of this script; their results checked and summarised."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import mesh
+    work = Path(tempfile.mkdtemp(prefix="tp_"))
+    tmp = work / "tp_in"
+    tmp.mkdir()
+    out_dir = OUT_DIR / "tp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    summary = {"one_worker": {}, "serve": {}}
+    try:
+        for label, (cfg, _, _, _, _) in tp_cfgs().items():
+            summary["one_worker"][label] = tp_one_worker(
+                dev, cfg, tmp / f"{label}.pt",
+                sensitivity=label.startswith("a "))
+        torch.cuda.empty_cache()
+        ranks = {}
+        for world in (2, 4):
+            rank_dir = work / f"w{world}"
+            rank_dir.mkdir()
+            t = time.perf_counter()
+            res = mesh.run_local_ranks(
+                lambda r, init: [str(ROOT / "chip_smoke.py"), "--rank",
+                                 str(r), "--world", str(world), "--init",
+                                 init, "--out", str(rank_dir), "--phase",
+                                 "16"], world, RANK_TIMEOUT_S)
+            summary[f"world{world}_wall_s"] = time.perf_counter() - t
+            for r, (rc, so, se) in enumerate(res):
+                (out_dir / f"w{world}_rank{r}.log").write_text(
+                    so + "\n---- stderr\n" + se)
+                if rc != 0:
+                    raise AssertionError(f"16: world {world} rank {r} exited "
+                                         f"{rc}:\n{se[-4000:]}")
+            ranks[world] = [json.loads((rank_dir / f"rank{r}.json")
+                                       .read_text()) for r in range(world)]
+        errors = [f"rank {r}: {ranks[w][r]['serve'][label]['error']}"
+                  for label, (_, _, _, w, _) in tp_cfgs().items()
+                  for r in range(w) if "error" in ranks[w][r]["serve"][label]]
+        if errors:
+            raise AssertionError("16: " + "; ".join(errors))
+        for label, (cfg, data, model, world, _) in tp_cfgs().items():
+            per = [r["serve"][label] for r in ranks[world]]
+            summary["serve"][label] = {
+                "data, model": [data, model],
+                "fed one worker's tokens": per[0]["forced"],
+                "greedy_choices_differing": [p["greedy_choices_differing"]
+                                             for p in per],
+                # a data index's ranks hold the same slots and tokens
+                "differing_margins (one worker)": [
+                    p.get("differing_margins") for p in per[::model]],
+                "own_greedy": [p.get("own_greedy") for p in per[::model]],
+                "wo_one_ulp_logit_gap (one worker)": summary["one_worker"][
+                    label].get("wo_one_ulp_logit_gap"),
+                "param_bytes_per_rank": [p["param_bytes"] for p in per],
+                "one_worker_param_bytes":
+                    summary["one_worker"][label]["param_bytes"],
+                "max_abs_logit_gap": max(p["max_abs_logit_gap"]
+                                         for p in per),
+                "step_s_median": [statistics.median(p["step_s"][1:])
+                                  for p in per],
+                "collective_s_median": [statistics.median(
+                    p["collective_s"][1:]) for p in per],
+                "collectives_per_step": per[0]["collectives_per_step"],
+                "launches_per_step": per[0]["launches_per_step"],
+                "peak_mem_GB": [p["peak_mem_GB"] for p in per],
+                "one_worker_step_s_median":
+                    summary["one_worker"][label]["step_s_median"]}
+        # 16d: every (2, 2) rank bitwise the (2, 1) run's rank 0
+        want = torch.load(tmp / "train_2x1_r0.pt")
+        for world, tag in ((2, "2x1"), (4, "2x2")):
+            for r in range(world):
+                got = torch.load(tmp / f"train_{tag}_r{r}.pt")
+                if not _leaves_equal(got, want):
+                    raise AssertionError(f"16d: ({tag}) rank {r} != (2, 1) "
+                                         "rank 0")
+        summary["train"] = {
+            "losses (2, 1)": ranks[2][0]["train"]["losses"],
+            "losses (2, 2)": ranks[4][0]["train"]["losses"],
+            "bitwise": "every (2, 2) and (2, 1) rank's params and AdamW "
+                       "state equal"}
+        summary["backend"] = [r["backend"] for w in (2, 4)
+                              for r in ranks[w]]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for k, v in summary["serve"].items():
+        log(f"[16 {k}] " + json.dumps(v))
+    log("[16d] " + json.dumps(summary["train"]))
     return summary
 
 
@@ -3581,6 +4023,10 @@ def main() -> int:
         p15["c"][key] = graph_timing_phase(dev, cfg, f"15c {key}", traffic)
     clock.done("15c decode step, graph and eager in turns")
 
+    # -- 16. serving across workers (the "model" axis) -----------------------
+    p16 = tp_phase(dev)
+    clock.done("16 serving across workers, model 2 and 4")
+
     # -- 12. result lines -------------------------------------------------------
     names = {
         "encode": ("src/repro_torch/csrc/quantencode.cu",
@@ -3624,7 +4070,8 @@ def main() -> int:
                            "serve_hymba_x32": hymba_serve,
                            "card_vs_cpu": families,
                            "train_xlstm_x24": xlstm_train},
-              "phase14": p14, "phase15": p15, "phase_s": clock.seconds}
+              "phase14": p14, "phase15": p15, "phase16": p16,
+              "phase_s": clock.seconds}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))

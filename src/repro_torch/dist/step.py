@@ -21,11 +21,26 @@ reference's (m, …) EF leaves.
 Workers are the ranks of `group` (`repro_torch.dist.sharding`): every rank
 runs the same step on the global batch, takes its rows (`shard_batch`) and
 meets the others only in the consensus. `group=None` is one worker with no
-collective. The params path is exact across ranks: the gathered words and
-the all-to-all move bits, and the worker mean is a left-to-right fold
+collective. `group` may be a ("data", "model") `HostMesh`
+(`launch.mesh.make_host_group`): the consensus then runs over the rank's
+data group, and the params and optimizer state, held split over "model"
+as `train_state_specs` places them (the reference's placement), are
+gathered whole at the step's entry and cut back to the rank's slices at
+its exit, as the reference's shard_map replicates them over "model"
+inside the step. Every model rank of a data group computes the same step,
+bitwise the model = 1 step on its data shard. ZeRO-1 keeps its state
+replicated over "model", as the reference's does.
+
+The params path is exact across ranks: the gathered words and the
+all-to-all move bits, and the worker mean is a left-to-right fold
 (`sharding.fold_mean`), so every rank updates the same params bit for bit.
 The loss (`pmean`), `psum`, `psum_decoded` and ZeRO-1's grad norm are
 `all_reduce` sums in the backend's order.
+
+The serve step (`make_serve_step`) at model > 1 is tensor parallelism over
+"model" (`sharding.ModelShard`, `models.decode`): a rank holds its slices
+of the params (`init_serve_state` draws them leaf by leaf) and its data
+index's slots of the caches, which are whole over "model".
 
 Observability, as in the reference: the returned step callables carry
 host-side instrumentation. With a `repro_torch.obs` session active, each
@@ -39,9 +54,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import graph as graph_lib
 from repro_torch import resolve_device
@@ -59,20 +76,32 @@ from repro_torch.optimizer.optim import clip_by_global_norm, global_norm
 
 @dataclasses.dataclass(frozen=True)
 class StateSpec:
-    """A state leaf's global shape and dtype, and the dim split over the
-    workers (None: every rank holds the whole leaf)."""
+    """A state leaf's global shape and dtype, and its placement: one entry
+    per dim, as the reference's PartitionSpec has them, None (whole), an
+    axis name, or a tuple of axis names (split over their product).
+    `entries` None: every rank holds the whole leaf."""
 
     shape: tuple
     dtype: torch.dtype
-    split: Optional[int] = None
+    entries: Optional[tuple] = None
 
-    def local_shape(self, num_workers: int) -> tuple:
-        """The shape one rank holds."""
-        if self.split is None:
+    def local_shape(self, mesh=1) -> tuple:
+        """The shape one rank of `mesh` holds: a mesh layout, a process
+        group, or an int, the workers along the one "data" axis of a
+        process group (`sharding.axis_sizes`)."""
+        if self.entries is None:
             return self.shape
+        sizes = sharding.axis_sizes(mesh)
         s = list(self.shape)
-        s[self.split] //= num_workers
+        for i, e in enumerate(self.entries):
+            for a in (e if isinstance(e, tuple) else (e,)):
+                if a is not None:
+                    s[i] //= sizes.get(a, 1)
         return tuple(s)
+
+    def nbytes(self, mesh=1) -> int:
+        """Bytes one rank of `mesh` holds."""
+        return math.prod(self.local_shape(mesh)) * self.dtype.itemsize
 
 
 def _round_idx(opt_state) -> int:
@@ -92,7 +121,7 @@ def _pmean(x: torch.Tensor, group) -> torch.Tensor:
     return sharding.all_reduce_sum(x, group).div_(m)
 
 
-def _meta_params(cfg):
+def meta_params(cfg):
     """The model's parameter tree as `meta` tensors (shapes, dtypes), the
     NamedTuple subtrees of the Mamba and xLSTM blocks kept."""
     shapes, spec = tree_lib.flatten(model_lib.param_shapes(cfg),
@@ -102,11 +131,22 @@ def _meta_params(cfg):
         for s in shapes])
 
 
+def whole_train_state(cfg, group, params, opt_state):
+    """(params, opt_state) whole: gathered over "model" from this rank's
+    slices on a HostMesh with model > 1 (every rank must call it), as
+    they are elsewhere."""
+    tp = _model_shard(cfg, group)
+    if tp is None:
+        return params, opt_state
+    whole = tp.gather_tree(params)
+    return whole, _params_like(tp.gather_tree, opt_state, whole)
+
+
 def _analytic_payload_bytes(cfg, gc: G.GradCompConfig, group):
     """Per-worker bytes on the wire per step, from the audit over the
     model's parameter shapes (None when they can't be built)."""
     try:
-        wire = G.wire_bytes_tree(_meta_params(cfg), gc,
+        wire = G.wire_bytes_tree(meta_params(cfg), gc,
                                  sharding.num_workers(group))
         if gc.strategy == "psum":
             return float(wire["f32_bytes"])
@@ -135,6 +175,28 @@ def _with_obs(fn, name: str, gc: G.GradCompConfig, payload_bytes):
         return out
 
     return stepper
+
+
+def _model_shard(cfg, group):
+    """The `ModelShard` by which a train step on a HostMesh with model > 1
+    gathers and cuts the params and optimizer state (None otherwise)."""
+    if sharding.model_axis_size(group) == 1:
+        return None
+    if not isinstance(group, sharding.HostMesh):
+        raise ValueError("a mesh layout has no ranks to train on "
+                         "(make_host_group makes one with ranks)")
+    return sharding.ModelShard(meta_params(cfg), group.shape["model"],
+                               group.model_index, group.model_group)
+
+
+def _params_like(fn, state, params):
+    """`state` with fn applied to each of its subtrees structured like
+    `params` (the optimizer's mu / nu / vel); the rest as it is."""
+    if not isinstance(state, dict):
+        return state
+    pdef = tree_lib.flatten(params)[1]
+    return {k: fn(v) if tree_lib.flatten(v)[1] == pdef else v
+            for k, v in state.items()}
 
 
 def _grads(loss_of, leaves, spec, batch):
@@ -217,13 +279,24 @@ def make_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
 
     The parameter and EF tensors are updated IN PLACE (p += u, the same
     rounding as the reference's p + u; e ← the new residual), which saves
-    params-sized copies; the returned trees hold the same tensors."""
+    params-sized copies; the returned trees hold the same tensors.
+
+    On a HostMesh with model > 1 the params and the optimizer's
+    params-shaped state are this rank's slices (`init_train_state`): they
+    are gathered whole at entry (exact), the step runs over the data
+    group, and the new slices are written back (module docstring)."""
     if gc.strategy == "alltoall_zero1":
         raise ValueError("strategy 'alltoall_zero1' needs "
                          "make_zero_train_step")
     loss_of = loss_fn or (lambda p, b: model_lib.loss_fn(cfg, p, b))
+    tp = _model_shard(cfg, group)
+    payload_bytes = _analytic_payload_bytes(cfg, gc, group)
+    group = sharding.data_group(group)
 
     def step(params, opt_state, ef, batch):
+        if tp is not None:
+            shards, params = params, tp.gather_tree(params)
+            opt_state = _params_like(tp.gather_tree, opt_state, params)
         leaves, spec = tree_lib.flatten(params)
         loss, g_leaves = _grads(loss_of, leaves, spec,
                                 sharding.shard_batch(batch, group))
@@ -239,53 +312,77 @@ def make_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
         with torch.no_grad():
             for p, u in zip(leaves, tree_lib.leaves(updates)):
                 p.add_(u.to(p.dtype))
+            if tp is not None:
+                for s, p in zip(tree_lib.leaves(shards),
+                                tree_lib.leaves(tp.take_tree(params))):
+                    s.copy_(p)
+                params = shards
+                opt_state = _params_like(tp.take_tree, opt_state, shards)
         return params, opt_state, ef, {"loss": loss, "grad_norm": grad_norm}
 
-    return _with_obs(step, "dist.step", gc,
-                     _analytic_payload_bytes(cfg, gc, group))
+    return _with_obs(step, "dist.step", gc, payload_bytes)
 
 
-def _specs(tree, split=None):
+def _specs(tree, lead=None):
+    """StateSpecs of `tree`'s leaves: dim 0 placed by `lead` (an axis
+    entry), the rest whole; `lead` None: whole leaves."""
     return tree_lib.map(
-        lambda x: StateSpec(tuple(x.shape), x.dtype, split), tree)
+        lambda x: StateSpec(tuple(x.shape), x.dtype, None if lead is None
+                            else (lead,) + (None,) * (x.dim() - 1)), tree)
 
 
-def _state_specs_like(state, params, split):
+def _placed(tree, entries_tree):
+    """StateSpecs of `tree`'s leaves placed by the entries at the same
+    positions of `entries_tree` (a `param_specs` tree)."""
+    return tree_lib.map(lambda x, e: StateSpec(tuple(x.shape), x.dtype, e),
+                        tree, entries_tree)
+
+
+def _state_specs_like(state, params, entries_tree):
     """Optimizer-state specs: subtrees structured like the params (mu / nu
-    / vel) take the params' `split`; everything else is replicated."""
+    / vel) take the params' placement; everything else is whole."""
     pspec = tree_lib.flatten(params)[1]
     if not isinstance(state, dict):
         return _specs(state)
-    return {k: _specs(v, split if tree_lib.flatten(v)[1] == pspec else None)
+    return {k: (_placed(v, entries_tree)
+                if tree_lib.flatten(v)[1] == pspec else _specs(v))
             for k, v in state.items()}
 
 
 def train_state_specs(cfg, opt, gc: G.GradCompConfig, group=None):
-    """StateSpec trees for (params, opt_state, ef) of `init_train_state`:
-    params and optimizer state whole on every rank, EF (m, …) split on
-    dim 0."""
-    params = _meta_params(cfg)
+    """StateSpec trees for (params, opt_state, ef) of `init_train_state`,
+    the reference's placement: params and their optimizer state split
+    over "model" by `param_specs` (whole at model 1), EF (m, …) split over
+    the data axes on dim 0."""
+    params = meta_params(cfg)
+    entries = sharding.param_specs(params, sharding.model_axis_size(group))
     m = sharding.num_workers(group)
-    ef = (tree_lib.map(lambda x: StateSpec((m,) + tuple(x.shape),
-                                           torch.float32, 0), params)
-          if gc.uses_ef else {})
-    return _specs(params), _state_specs_like(opt.init(params), params,
-                                             None), ef
+    lead = sharding.lead_entry(sharding.data_axis_names(group))
+    ef = (tree_lib.map(lambda x: StateSpec(
+        (m,) + tuple(x.shape), torch.float32, (lead,) + (None,) * x.dim()),
+        params) if gc.uses_ef else {})
+    return (_placed(params, entries),
+            _state_specs_like(opt.init(params), params, entries), ef)
 
 
 def init_train_state(cfg, opt, gc: G.GradCompConfig, group=None,
                      seed: int = 0, device=None):
     """Materialized (params, opt_state, ef) on `device` (`cuda` unless
     asked for the CPU); EF leaves are this rank's (1, *param shape) f32
-    zeros when the strategy uses error feedback. Every rank must derive
+    zeros when the strategy uses error feedback. On a HostMesh with model
+    > 1 the params are this rank's slices, drawn leaf by leaf
+    (`model.init_params`' `cut`). Every rank of a data group must derive
     the same params from `seed`: one `all_reduce` of a checksum raises
     otherwise."""
-    params = model_lib.init_params(seed, cfg, resolve_device(device))
-    sharding.check_replicas_equal(params, group)
+    device = resolve_device(device)
+    tp = _model_shard(cfg, group)
+    params = model_lib.init_params(seed, cfg, device,
+                                   cut=None if tp is None else tp.cut)
+    sharding.check_replicas_equal(params, sharding.data_group(group))
     opt_state = opt.init(params)
     ef = (tree_lib.map(lambda p: torch.zeros(
-        (1,) + tuple(p.shape), dtype=torch.float32, device=p.device),
-        params) if gc.uses_ef else {})
+        (1,) + tuple(p.shape), dtype=torch.float32, device=device),
+        meta_params(cfg)) if gc.uses_ef else {})
     return params, opt_state, ef
 
 
@@ -301,12 +398,14 @@ def make_zero_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
     their optimizer state and its (1, padded_chunks, chunk) EF; the params
     are all-gathered for the forward pass (`gather_dtype` optionally casts
     them for that gather; None keeps the step bitwise `allgather_packed`).
-    The owned params and the EF are updated in place."""
+    The owned params and the EF are updated in place. On a HostMesh the
+    step runs over the rank's data group, its state whole over "model"."""
+    group = sharding.data_group(group)
     m = sharding.num_workers(group)
     r = sharding.worker_index(group)
     chunk = gc.chunk
     loss_of = loss_fn or (lambda p, b: model_lib.loss_fn(cfg, p, b))
-    spec, infos = zero_lib.params_meta(_meta_params(cfg), gc, m)
+    spec, infos = zero_lib.params_meta(meta_params(cfg), gc, m)
 
     def step(owned_params, opt_state, ef, batch):
         owned_leaves = tree_lib.flatten_up_to(spec, owned_params)
@@ -366,7 +465,7 @@ def make_zero_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
 
 
 def _owned_templates(cfg, gc: G.GradCompConfig, m: int):
-    spec, infos = zero_lib.params_meta(_meta_params(cfg), gc, m)
+    spec, infos = zero_lib.params_meta(meta_params(cfg), gc, m)
     return spec, infos, tree_lib.unflatten(spec, [
         torch.empty((pc, gc.chunk), dtype=torch.float32, device="meta")
         for (_, _, _, (pc, _)) in infos])
@@ -375,21 +474,26 @@ def _owned_templates(cfg, gc: G.GradCompConfig, m: int):
 def zero_state_specs(cfg, opt, gc: G.GradCompConfig, group=None):
     """StateSpec trees for the owned-layout (params, opt_state, ef) of
     `init_zero_state`: owned (padded_chunks, chunk) and EF (m,
-    padded_chunks, chunk) f32, each split over the workers on dim 0."""
+    padded_chunks, chunk) f32, each split over the data axes on dim 0 and
+    whole over "model"."""
     m = sharding.num_workers(group)
+    lead = sharding.lead_entry(sharding.data_axis_names(group))
     spec, infos, owned = _owned_templates(cfg, gc, m)
     ef = (tree_lib.unflatten(spec, [
-        StateSpec((m, pc, gc.chunk), torch.float32, 0)
+        StateSpec((m, pc, gc.chunk), torch.float32, (lead, None, None))
         for (_, _, _, (pc, _)) in infos]) if gc.uses_ef else {})
-    return (_specs(owned, 0), _state_specs_like(opt.init(owned), owned, 0),
-            ef)
+    owned_entries = tree_lib.map(lambda _: (lead, None), owned)
+    return (_specs(owned, lead),
+            _state_specs_like(opt.init(owned), owned, owned_entries), ef)
 
 
 def init_zero_state(cfg, opt, gc: G.GradCompConfig, group=None,
                     seed: int = 0, device=None):
     """This rank's owned-layout (params, opt_state, ef): the same init as
     `init_train_state` (so both paths start from identical parameters),
-    cut to the rank's rows; the ranks' params are checked equal first."""
+    cut to the rank's rows; the ranks' params are checked equal first. On
+    a HostMesh, the rank's data index's rows, whole over "model"."""
+    group = sharding.data_group(group)
     m = sharding.num_workers(group)
     r = sharding.worker_index(group)
     params = model_lib.init_params(seed, cfg, resolve_device(device))
@@ -412,25 +516,71 @@ def init_zero_state(cfg, opt, gc: G.GradCompConfig, group=None,
 # ---------------------------------------------------------------------------
 # Serve step
 # ---------------------------------------------------------------------------
+def _serve_layout(mesh):
+    """`mesh` as the placement functions read it: None for one worker (None
+    or a device), else the process group or mesh; anything else raises."""
+    if mesh is None or isinstance(mesh, (str, torch.device)):
+        return None
+    if isinstance(mesh, (sharding.MeshLayout, dist.ProcessGroup)):
+        return mesh
+    raise ValueError(f"mesh={mesh!r}: a serve step takes None, a device, a "
+                     "process group of data workers or a mesh "
+                     "(launch.mesh.make_host_group)")
+
+
+def _serve_shard(cfg, layout):
+    """The `sharding.ModelShard` the serve step on `layout` runs through:
+    this rank's slice of the model at model > 1, and for an MoE config at
+    data > 1 the data group its routing gathers the global batch over.
+    None where every rank runs the one-worker step on its slots."""
+    model = sharding.model_axis_size(layout)
+    batch = cfg.num_experts > 0 and sharding.num_workers(layout) > 1
+    if model == 1 and not batch:
+        return None
+    if isinstance(layout, sharding.HostMesh):
+        return sharding.ModelShard(
+            meta_params(cfg), model, layout.model_index, layout.model_group,
+            batch_group=layout.data_group if batch else None,
+            batch_index=layout.data_index)
+    if isinstance(layout, sharding.MeshLayout):
+        raise ValueError("a mesh layout has no ranks to serve on "
+                         "(make_host_group makes one with ranks)")
+    return sharding.ModelShard(meta_params(cfg), 1, 0, batch_group=layout,
+                               batch_index=sharding.worker_index(layout))
+
+
 def make_serve_step(cfg, mesh=None):
-    """(params, DecodeState, tokens (B, 1)) → (logits (B, V), state): the
-    captured `decode_step` at one worker (`repro_torch.graph.Program`, a
-    CUDA graph per batch shape and bound caches), registered as
-    "dist.serve_step" as the reference registers its jitted step. `mesh`
-    keeps the reference's signature; it must be None or a single device.
-    The reference's serve step across workers is GSPMD tensor parallelism
-    over "model", which the port has no counterpart for yet (ROADMAP queue
-    1 item 4). A device pins the step: it raises on parameters that live
-    elsewhere."""
-    if mesh is not None and not isinstance(mesh, (str, torch.device)):
-        raise NotImplementedError(
-            f"mesh={mesh!r}: only one device is ported so far; serving "
-            "across workers is tensor parallelism over 'model' in the "
-            "reference, not ported yet (ROADMAP queue 1 item 4)")
+    """(params, DecodeState, tokens (B, 1)) → (logits (B, V), state), as
+    the reference's jitted `decode_step`, registered as "dist.serve_step".
+
+    At one worker (`mesh` None or a device) it is the captured
+    `decode_step` (`repro_torch.graph.Program`, a CUDA graph per batch
+    shape and bound caches); a device pins it: it raises on parameters
+    that live elsewhere. Over data workers (a process group) each rank
+    runs that program on its own slots: nothing crosses ranks.
+
+    On a HostMesh with model > 1 it is tensor parallelism over "model": a
+    rank passes its slices of the params and its data index's slots of
+    the state (`init_serve_state`), and gets its slots' whole logits (B /
+    data, V). An MoE config at data > 1 (a process group or a HostMesh)
+    routes the global batch, as the reference's GSPMD step does: each
+    MoE layer gathers the ranks' top-k choices over the data group, and
+    the batch must be split over it (`init_serve_state` refuses a batch
+    the data axis does not divide). These steps run eagerly: their
+    collectives are host calls (gloo, for ranks that share a card, cannot
+    be captured in a CUDA graph), so `obs.recompile` counts no
+    specialization for them."""
+    layout = _serve_layout(mesh)
+    if not cfg.decode_supported:
+        raise ValueError(f"{cfg.name} is encoder-only: no serve step")
+    tp = _serve_shard(cfg, layout)
+    if tp is not None:
+        return recompile_lib.register("dist.serve_step", functools.partial(
+            decode_lib.decode_step, cfg, tp=tp))
     step = recompile_lib.register("dist.serve_step", graph_lib.Program(
         functools.partial(decode_lib.decode_step, cfg),
         decode_lib.IN_PLACE_ARGS))
-    if mesh is None:
+    if layout is not None or mesh is None:
         return step
     device = resolve_device(mesh)
 
@@ -444,15 +594,53 @@ def make_serve_step(cfg, mesh=None):
 
 
 def serve_state_specs(cfg, mesh, global_batch: int, seq_len: int):
-    """StateSpec trees for (params, DecodeState, tokens) of the serve step
-    at one worker (`mesh` None or a single device, as in
-    `make_serve_step`): every leaf whole on the one device."""
-    if mesh is not None and not isinstance(mesh, (str, torch.device)):
-        raise NotImplementedError(
-            f"mesh={mesh!r}: serving state across workers is not ported "
-            "yet (ROADMAP queue 1 item 4)")
+    """StateSpec trees for (params, DecodeState, tokens) of the serve step,
+    the reference's placement: params split over "model" by `param_specs`;
+    caches split over the data axes on the batch dim (dim 1) and whole
+    over "model", the rotation `signs` whole; `pos` and `tokens` split
+    over the data axes. At one worker every leaf is whole."""
+    layout = _serve_layout(mesh)
+    params = meta_params(cfg)
+    entries = sharding.param_specs(params, sharding.model_axis_size(layout))
+    axes = () if layout is None else sharding.data_axes_for(global_batch,
+                                                            layout)
+    first = sharding.lead_entry(axes)
     state = decode_lib.decode_state_specs(cfg, global_batch, seq_len)
-    return (_specs(_meta_params(cfg)),
-            decode_lib.DecodeState(caches=_specs(state.caches),
-                                   pos=_specs(state.pos)),
-            StateSpec((global_batch, 1), torch.int32))
+
+    def cache_spec(name, x):
+        if name in decode_lib.SHARED_CACHE_KEYS or not axes:
+            return StateSpec(tuple(x.shape), x.dtype)
+        return StateSpec(tuple(x.shape), x.dtype,
+                         (None, first) + (None,) * (x.dim() - 2))
+
+    return (_placed(params, entries),
+            decode_lib.DecodeState(
+                caches={k: cache_spec(k, v) for k, v in state.caches.items()},
+                pos=_specs(state.pos, first)),
+            StateSpec((global_batch, 1), torch.int32,
+                      (first, None) if axes else None))
+
+
+def init_serve_state(cfg, mesh, global_batch: int, max_seq: int,
+                     seed: int = 0, device=None):
+    """One rank's (params, DecodeState) for `make_serve_step(cfg, mesh)`:
+    its slices of the seeded params (`model.init_params` with the rank's
+    `cut`: drawn leaf by leaf, bitwise the slices of the one-worker init,
+    so a rank never holds the whole model) and zero caches for its slots
+    (`serve_state_specs`' local batch), on `device` (`cuda` unless asked
+    for the CPU)."""
+    layout = _serve_layout(mesh)
+    _, state, _ = serve_state_specs(cfg, layout, global_batch, max_seq)
+    local = state.pos.local_shape(layout)[0]
+    if (cfg.num_experts > 0 and local == global_batch
+            and sharding.num_workers(layout) > 1):
+        raise ValueError(f"{cfg.name} routes the global batch: a batch of "
+                         f"{global_batch} must split over the "
+                         f"{sharding.num_workers(layout)} data workers")
+    cut = None
+    if sharding.model_axis_size(layout) > 1:
+        cut = sharding.ModelShard(meta_params(cfg), layout.shape["model"],
+                                  layout.model_index).cut
+    params = model_lib.init_params(seed, cfg, device, cut=cut)
+    return params, decode_lib.init_decode_state(cfg, local, max_seq,
+                                                device=device)

@@ -3,13 +3,20 @@
 The least work a call must do: each input read once, each output written
 once, and the arithmetic of the transform, over coordinates (`coords`
 values in `rows` rows of `n`). `chip_smoke.py` divides these counts by the
-card's peaks for each kernel's bound, and `repro_torch.obs.costs` reports
-them for every `kernels.<op>.<path>` program a session observed, so both
-read one definition.
+card's peaks (below) for each kernel's bound, and `repro_torch.obs.costs`
+reports them for every `kernels.<op>.<path>` program a session observed,
+so both read one definition. The dry-run's roofline
+(`repro_torch.launch.hlo_analysis`) reads the same peaks.
 """
 from __future__ import annotations
 
 import math
+
+# NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, dense f32 operations/s
+# (TF32 off, as the port runs), NVLink 4 bytes/s per direction per card
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
+NVLINK_BYTES_S = 450e9
 
 
 def fwht(coords: int, n: int) -> tuple:

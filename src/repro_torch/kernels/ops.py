@@ -1,7 +1,9 @@
 """Dispatch of the codec ops by the tensor's device.
 
-A CPU tensor runs the plain PyTorch version (`kernels.ref`); a CUDA tensor
-runs the hand-written kernel, or raises where the kernel refuses the input
+A CPU tensor runs the plain PyTorch version (`kernels.ref`), and so does a
+`meta` tensor, which has shapes and no values (the dry-run traces the
+decode step on them, `repro_torch.launch.dryrun`); a CUDA tensor runs the
+hand-written kernel, or raises where the kernel refuses the input
 (a dtype it does not take, an N that is not a power of two). The FWHT and
 the encoders take every power-of-two N on the card: one launch up to 8192,
 hand-written passes above (`kernels.fwht.fwht_plan`). There is no switch
@@ -59,7 +61,7 @@ def add_launches(counts: dict) -> None:
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
-    return t.device.type == "cpu"
+    return t.device.type in ("cpu", "meta")
 
 
 def _opt(t):

@@ -1,19 +1,21 @@
 """Workers on `torch.distributed` (port of `repro.launch.mesh`).
 
 The reference builds a ("data", "model") `jax.sharding.Mesh`; the port's
-workers are processes, one per data-parallel worker, and its "mesh" is the
-process group of their ranks (`repro_torch.dist.sharding`). Every rank runs
+workers are processes, and its meshes are process groups and the layouts
+of `repro_torch.dist.sharding` (`HostMesh`, `MeshLayout`). Every rank runs
 the same program with the same arguments.
 
-  make_host_group(data, model)  the group a program of `data` ranks runs on
+  make_host_group(data, model)  the mesh a program of data × model ranks
+                                runs on
+  make_production_mesh(...)     the 16×16 or 2×16×16 layout, no processes
+                                (the dry-run reads its shape)
   init_workers(...)             one rank's `init_process_group`, with the
                                 backend rule of `sharding.backend_for`
   run_local_ranks(...)          start the ranks of one host as processes
 
 On a machine with a card per rank, `torchrun --nproc-per-node m` starts the
 ranks (`init_workers(int(os.environ["RANK"]), m, "env://")` in each takes
-NCCL); ranks sharing one card take gloo. `make_production_mesh` (TPU pods)
-is not ported.
+NCCL); ranks sharing one card take gloo.
 """
 from __future__ import annotations
 
@@ -30,25 +32,58 @@ import torch.distributed as dist
 
 from repro_torch.dist import sharding
 
+SINGLE_POD = (16, 16)                  # 256 devices
+MULTI_POD = (2, 16, 16)                # 512 devices
+SINGLE_AXES = ("data", "model")
+MULTI_AXES = ("pod", "data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         start_ranks: bool = False) -> sharding.MeshLayout:
+    """The reference's production layout: 16×16 ("data", "model") or
+    2×16×16 ("pod", "data", "model"), as a `MeshLayout` with no
+    processes (the dry-run reads its shape). Its 256 or 512 ranks span
+    hosts, so this function cannot start them (`start_ranks` raises):
+    `torchrun` over the hosts and `make_host_group` in each rank do."""
+    if start_ranks:
+        raise ValueError(
+            "the production mesh's ranks span hosts: start them with "
+            "torchrun and build the mesh in each with make_host_group")
+    return sharding.MeshLayout(MULTI_AXES if multi_pod else SINGLE_AXES,
+                               MULTI_POD if multi_pod else SINGLE_POD)
+
 
 def make_host_group(data: int = 1, model: int = 1):
-    """The group of `data` workers: None for one, else the initialized
-    default group, which must hold `data` ranks. A model axis > 1 raises:
-    the port's train step replicates the params (tensor parallelism over
-    "model" is not ported, ROADMAP queue 1 item 4)."""
-    if model != 1:
-        raise NotImplementedError(
-            f"model={model}: the port has no 'model' axis (tensor "
-            "parallelism is not ported, ROADMAP queue 1 item 4)")
-    if data == 1:
+    """The mesh of data × model ranks in the initialized default group.
+
+    At model 1 it is the group of `data` workers: None for one, else the
+    default group. At model > 1 it is a `sharding.HostMesh`, rank =
+    d·model + j as the reference's row-major mesh orders its devices,
+    with one model group per data index and one data group per model
+    index, made with `dist.new_group` (every rank makes every group, in
+    the same order, as `new_group` requires)."""
+    if data < 1 or model < 1:
+        raise ValueError(f"data={data}, model={model}: axes must be >= 1")
+    if data * model == 1:
         return None
     if not dist.is_initialized():
-        raise RuntimeError(f"data={data} needs torch.distributed initialized "
-                           "(init_workers) in each of its ranks")
-    if dist.get_world_size() != data:
-        raise ValueError(f"data={data}, but the default group holds "
-                         f"{dist.get_world_size()} ranks")
-    return dist.group.WORLD
+        raise RuntimeError(f"data={data} × model={model} needs "
+                           "torch.distributed initialized (init_workers) in "
+                           "each of its ranks")
+    if dist.get_world_size() != data * model:
+        raise ValueError(f"data={data} × model={model}, but the default "
+                         f"group holds {dist.get_world_size()} ranks")
+    if model == 1:
+        return dist.group.WORLD
+    rank = dist.get_rank()
+    model_groups = [dist.new_group([d * model + j for j in range(model)])
+                    for d in range(data)]
+    data_groups = [dist.new_group([d * model + j for d in range(data)])
+                   if data > 1 else None for j in range(model)]
+    return sharding.HostMesh(
+        SINGLE_AXES, (data, model), rank=rank, world=dist.group.WORLD,
+        model_group=model_groups[rank // model],
+        data_group=data_groups[rank % model])
 
 
 def init_workers(rank: int, world_size: int, init_method: str,

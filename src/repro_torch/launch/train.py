@@ -6,9 +6,12 @@
 
 Without a GPU, the default `--device cuda` raises rather than running on
 the CPU. `--ckpt-dir DIR` saves {"params", "opt_state"} after the last
-step at DIR/step_<steps> (`repro_torch.checkpoint`). Over m workers, every rank calls `train(..., group=group)` with the same
-arguments (`repro_torch.launch.mesh`): each takes its rows of the global
-batch.
+step at DIR/step_<steps> (`repro_torch.checkpoint`). Over m workers, every
+rank calls `train(..., group=group)` with the same arguments
+(`repro_torch.launch.mesh`): each takes its rows of the global batch.
+`group` may be a ("data", "model") mesh (`make_host_group(data, model)`):
+the workers are its data ranks, and at model > 1 a rank holds its slices
+of the params and optimizer state (`dist.step.make_train_step`).
 """
 from __future__ import annotations
 
@@ -18,13 +21,12 @@ import time
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch import tree as tree_lib
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.data.pipeline import batch_for_shape
 from repro_torch.dist import sharding
 from repro_torch.dist import step as step_lib
 from repro_torch.dist.gradcomp import GradCompConfig, wire_bytes_tree
-from repro_torch.models.model import disable_tf32
+from repro_torch.models.model import disable_tf32, param_count
 from repro_torch.optimizer.optim import adamw, warmup_cosine
 
 
@@ -39,8 +41,9 @@ def train(cfg, *, steps: int, batch_size: int, seq_len: int,
           ckpt_dir=None):
     """Train `steps` steps from seeded random weights on `device` (cuda by
     default), over the workers of `group` (None: one). Returns (params,
-    losses, step_seconds); `on_step(step, metrics)` is called after each
-    step, once the device has finished it. With `ckpt_dir`, rank 0 saves
+    losses, step_seconds), the params this rank's slices on a mesh with
+    model > 1; `on_step(step, metrics)` is called after each step, once
+    the device has finished it. With `ckpt_dir`, rank 0 saves the whole
     {"params", "opt_state"} at `ckpt_dir/step_<steps>` after the last
     step."""
     device = resolve_device(device)
@@ -52,13 +55,13 @@ def train(cfg, *, steps: int, batch_size: int, seq_len: int,
         cfg, opt, gc, group, seed=seed, device=device)
     m = sharding.num_workers(group)
 
-    n_params = sum(x.numel() for x in tree_lib.leaves(params))
+    n_params = param_count(cfg)
     print(f"model={cfg.name} layers={cfg.num_layers} "
           f"params={n_params/1e6:.1f}M workers={m} strategy={gc.strategy} "
           f"R={gc.effective_bits if gc.compresses else 32} bits/dim "
           f"device={device}")
     if gc.compresses:
-        audit = wire_bytes_tree(params, gc, m)
+        audit = wire_bytes_tree(step_lib.meta_params(cfg), gc, m)
         print(f"wire audit: f32={audit['f32_bytes']/2**20:.1f}MiB → "
               f"payload={audit['payload_bytes']/2**20:.1f}MiB "
               f"({audit['compression_x']:.1f}× smaller)")
@@ -83,10 +86,14 @@ def train(cfg, *, steps: int, batch_size: int, seq_len: int,
                   f"gnorm {float(metrics['grad_norm']):.3f}  "
                   f"step {step_seconds[-1]:.3f}s  "
                   f"({time.perf_counter() - t0:.1f}s)", flush=True)
-    if ckpt_dir and sharding.worker_index(group) == 0:
-        path = save_checkpoint(ckpt_dir, steps, {"params": params,
-                                                 "opt_state": opt_state})
-        print(f"checkpoint → {path}")
+    if ckpt_dir:
+        whole = step_lib.whole_train_state(cfg, group, params, opt_state)
+        if sharding.worker_index(group) == 0 and (
+                not isinstance(group, sharding.HostMesh)
+                or group.model_index == 0):
+            path = save_checkpoint(ckpt_dir, steps, {"params": whole[0],
+                                                     "opt_state": whole[1]})
+            print(f"checkpoint → {path}")
     return params, losses, step_seconds
 
 

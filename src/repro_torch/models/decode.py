@@ -38,6 +38,17 @@ The serve programs (`decode_step`, `prefill`, `decode_tokens`,
 it (the rotation signs are made once per shape and device, outside any
 program) and index slots by a device tensor. `extract_slot` reads a
 position on the host and stays outside every program.
+
+Tensor parallelism over "model": `decode_step`'s `tp` (a
+`dist.sharding.ModelShard`) says the params are this rank's slices, as
+`param_specs` cut them. The embedding is vocab-row-split (each rank looks
+up its rows, one all-reduce); q, k and v are gathered in one all-gather
+(the caches are replicated over "model", so every rank writes the whole
+new K/V entry, and every rank attends with all heads: the launches per
+rank per step are one worker's, 1 quant_decode_attention, 2 quantize_pack
+and 3 fwht per attention layer); wo and the MLP's W_down are row-split
+(one all-reduce each, the MLP a Megatron pair); the head's vocab columns
+are gathered. With `tp` None the path is the one-worker step, op for op.
 """
 from __future__ import annotations
 
@@ -145,14 +156,18 @@ def _cache_len_of(state: DecodeState) -> int:
 # One-layer decode
 # ---------------------------------------------------------------------------
 def _attn_decode(cfg: ModelConfig, p: dict, cache: dict, h: torch.Tensor,
-                 pos: torch.Tensor, c: int) -> torch.Tensor:
+                 pos: torch.Tensor, c: int, tp=None) -> torch.Tensor:
     """Self-attention for one new token against ONE layer's cache views
     `cache`, which it updates in place; returns the attention output."""
     b = h.shape[0]
     x = L.rmsnorm(h, p["attn_norm"], cfg.norm_eps)
-    q = (x @ p["wq"]).reshape(b, 1, cfg.num_heads, cfg.dh)
-    k = (x @ p["wk"]).reshape(b, 1, cfg.num_kv_heads, cfg.dh)
-    v = (x @ p["wv"]).reshape(b, 1, cfg.num_kv_heads, cfg.dh)
+    if tp is None:
+        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    else:
+        q, k, v = tp.linears(x, [(p[n], n) for n in ("wq", "wk", "wv")])
+    q = q.reshape(b, 1, cfg.num_heads, cfg.dh)
+    k = k.reshape(b, 1, cfg.num_kv_heads, cfg.dh)
+    v = v.reshape(b, 1, cfg.num_kv_heads, cfg.dh)
     positions = pos[:, None]                     # (B, 1) per-slot positions
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -175,47 +190,48 @@ def _attn_decode(cfg: ModelConfig, p: dict, cache: dict, h: torch.Tensor,
         cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
         o = L.decode_attention(q, cache["k"], cache["v"], kv_len=kv_len)
-    return o.reshape(b, 1, cfg.q_dim) @ p["wo"]
+    return L.linear(o.reshape(b, 1, cfg.q_dim), p["wo"], tp, "wo")
 
 
 def block_decode(cfg: ModelConfig, p: dict, cache: dict, h: torch.Tensor,
-                 pos: torch.Tensor, c: int) -> torch.Tensor:
+                 pos: torch.Tensor, c: int, tp=None) -> torch.Tensor:
     """One scanned unit, one token: h (B, 1, d) → h. `cache` holds this
-    layer's cache views and is updated in place."""
+    layer's cache views and is updated in place; `tp` as in
+    `decode_step`."""
     if cfg.block in ("attn_mlp", "attn_moe", "attn_moe_dense"):
-        h = h + _attn_decode(cfg, p, cache, h, pos, c)
+        h = h + _attn_decode(cfg, p, cache, h, pos, c, tp)
     if cfg.block == "hybrid":
-        attn_out = _attn_decode(cfg, p, cache, h, pos, c)
+        attn_out = _attn_decode(cfg, p, cache, h, pos, c, tp)
         x = L.rmsnorm(h, p["attn_norm"], cfg.norm_eps)
         mamba_out, ssm_h = ssm_lib.mamba_decode_step(p["mamba"], x,
-                                                     cache["ssm_h"])
+                                                     cache["ssm_h"], tp)
         cache["ssm_h"].copy_(ssm_h)
         h = h + 0.5 * (attn_out + mamba_out)
     if cfg.block in ("attn_mlp", "hybrid"):
         x = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
-        h = h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        h = h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"], tp)
     if cfg.block in ("attn_moe", "attn_moe_dense"):
         x = L.rmsnorm(h, p["moe_norm"], cfg.norm_eps)
         moe_out = moe_lib.moe_ffn(
             x, p["router"], p["e_gate"], p["e_up"], p["e_down"],
-            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor, tp=tp)
         if cfg.block == "attn_moe_dense":
             xm = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
             moe_out = moe_out + L.swiglu(xm, p["w_gate"], p["w_up"],
-                                         p["w_down"])
+                                         p["w_down"], tp)
         h = h + moe_out
     if cfg.block == "xlstm_pair":
         x = L.rmsnorm(h, p["m_norm"], cfg.norm_eps)
         m_state = xlstm_lib.MLSTMState(cache["m_c"], cache["m_n"],
                                        cache["m_m"])
-        m_out, m_state = xlstm_lib.mlstm_decode_step(p["mlstm"], x,
-                                                     cfg.num_heads, m_state)
+        m_out, m_state = xlstm_lib.mlstm_decode_step(
+            p["mlstm"], x, cfg.num_heads, m_state, tp)
         h = h + m_out
         x = L.rmsnorm(h, p["s_norm"], cfg.norm_eps)
         s_state = xlstm_lib.SLSTMState(cache["s_c"], cache["s_n"],
                                        cache["s_h"])
-        s_out, s_state = xlstm_lib.slstm_decode_step(p["slstm"], x,
-                                                     cfg.num_heads, s_state)
+        s_out, s_state = xlstm_lib.slstm_decode_step(
+            p["slstm"], x, cfg.num_heads, s_state, tp)
         h = h + s_out
         for name, new in zip(("m_c", "m_n", "m_m", "s_c", "s_n", "s_h"),
                              tuple(m_state) + tuple(s_state)):
@@ -235,20 +251,23 @@ IN_PLACE_ARGS = ("[0]", "[1].caches")
 # ---------------------------------------------------------------------------
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: dict, state: DecodeState,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, tp=None):
     """tokens: (B, 1) int → (logits (B, padded_vocab) f32, new state). The
-    caches of `state` are updated in place (see the module docstring)."""
+    caches of `state` are updated in place (see the module docstring).
+    With `tp` (a `dist.sharding.ModelShard`), `params` are this rank's
+    slices and the step runs as tensor parallelism over "model"."""
     if not cfg.decode_supported:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    h = L.embed(tokens, params["embed"]).to(cfg.compute_dtype)  # (B, 1, d)
+    h = L.embed(tokens, params["embed"], tp).to(cfg.compute_dtype)
     c = _cache_len_of(state)
     leaves, spec = tree_lib.flatten(params["blocks"])
     for i in range(cfg.num_scanned):
         layer_cache = {name: x[i] for name, x in state.caches.items()}
         h = block_decode(cfg, tree_lib.unflatten(spec, [x[i] for x in leaves]),
-                         layer_cache, h, state.pos, c)
+                         layer_cache, h, state.pos, c, tp)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    logits = (h[:, 0] @ params["head"]).to(torch.float32)   # (B, V)
+    logits = L.linear(h[:, 0], params["head"], tp,
+                      "head").to(torch.float32)             # (B, V)
     return logits, DecodeState(caches=state.caches, pos=state.pos + 1)
 
 

@@ -25,8 +25,20 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     return (x * weight).to(dtype)
 
 
-def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.embedding(tokens, table)
+def embed(tokens: torch.Tensor, table: torch.Tensor,
+          tp=None) -> torch.Tensor:
+    """The lookup; with `tp` (a `dist.sharding.ModelShard`) `table` is
+    this rank's vocab rows."""
+    if tp is None:
+        return torch.nn.functional.embedding(tokens, table)
+    return tp.embed(tokens, table)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, tp=None,
+           name: str = "") -> torch.Tensor:
+    """x @ w; with `tp`, x times the whole leaf `name` of which w is this
+    rank's slice (`ModelShard.linear`)."""
+    return x @ w if tp is None else tp.linear(x, w, name)
 
 
 # ---------------------------------------------------------------------------
@@ -146,8 +158,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # MLPs
 # ---------------------------------------------------------------------------
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+           w_down: torch.Tensor, tp=None) -> torch.Tensor:
+    """(SiLU(x W_gate) ⊙ x W_up) W_down. With `tp` (a
+    `dist.sharding.ModelShard`) the weights are this rank's slices: where
+    d_ff is split (param_spec splits all three on d_ff, or none), a
+    Megatron pair, the gate and up columns feeding their rows of W_down,
+    whose partials one all-reduce sums."""
+    y = (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return y if tp is None or tp.split("w_gate") is None else tp.reduce(y)
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,

@@ -195,31 +195,43 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
-def _build(tree, make, name=""):
-    """`tree` of shapes with each shape replaced by make(leaf name, shape),
-    visiting dict keys in insertion order and NamedTuple fields in order."""
+def _build(tree, make, name="", path=""):
+    """`tree` of shapes with each shape replaced by make(leaf name, shape,
+    dotted path), visiting dict keys in insertion order and NamedTuple
+    fields in order."""
     if is_shape(tree):
-        return make(name, tree)
+        return make(name, tree, path)
     if isinstance(tree, dict):
-        return {k: _build(v, make, k) for k, v in tree.items()}
-    return type(tree)(*[_build(v, make, f)
+        return {k: _build(v, make, k, f"{path}.{k}") for k, v in tree.items()}
+    return type(tree)(*[_build(v, make, f, f"{path}.{f}")
                         for f, v in zip(tree._fields, tree)])
 
 
-def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
+def init_params(seed: int, cfg: ModelConfig, device=None, cut=None) -> dict:
     """Random parameters from a seeded generator on `device` (`cuda`
     unless asked for the CPU), with the reference's init rules: norms and
     the Mamba skip 1, the Mamba Δ bias −4.6 (softplus⁻¹(0.01)) and A_log
     log(1..n), the mLSTM forget gate N(0, 0.02²) + 3, every other matrix
     N(0, 0.02²). Same distributions as the reference's `init_params`, not
     the same numbers (the tests carry JAX parameters over with
-    `repro_torch.convert`)."""
+    `repro_torch.convert`).
+
+    `cut(path, leaf)`, when given, takes each leaf as soon as it is drawn
+    and returns what to keep of it (a rank's slice,
+    `dist.sharding.ModelShard.cut`; `path` is the dotted tree path,
+    ".blocks.wq"): every leaf is drawn whole from the one stream, so the
+    kept slices are bitwise the slices of the whole init, and at most one
+    whole leaf is held beyond them."""
     dt = cfg.compute_dtype
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
-    def make(name, shape):
+    def make(name, shape, path):
+        w = draw(name, shape)
+        return w if cut is None else cut(path, w)
+
+    def draw(name, shape):
         if name.endswith("norm") or name == "d_skip":
             return torch.ones(shape, dtype=dt, device=device)
         if name == "dt_bias":

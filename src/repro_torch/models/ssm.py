@@ -11,6 +11,11 @@ the reference:
                          composes the same pairs in another tree, so the
                          two agree to rounding, not bitwise).
 Δ is `softplus` as the reference computes it, logaddexp(x, 0).
+
+`mamba_decode_step` takes `tp` (a `dist.sharding.ModelShard`) when the
+weights are a rank's slices: each product's output is gathered (or its
+row-split partials summed) and A_log is read whole, so every rank updates
+the same state h from the same inputs.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import softplus
+from repro_torch.models.layers import linear, softplus
 
 
 class MambaParams(NamedTuple):
@@ -42,21 +47,25 @@ def mamba_shapes(d: int, di: int, n: int) -> MambaParams:
                        out_proj=(di, d))
 
 
-def _inputs(p: MambaParams, x: torch.Tensor):
-    di = p.out_proj.shape[0]
-    n = p.a_log.shape[-1]
-    xz = x @ p.in_proj
+def _inputs(p: MambaParams, x: torch.Tensor, tp=None):
+    def mm(y, w, name):
+        return linear(y, w, tp, "mamba." + name)
+
+    a_log = p.a_log if tp is None else tp.weight(p.a_log, "mamba.a_log")
+    di, n = a_log.shape
+    xz = mm(x, p.in_proj, "in_proj")
     x_in, z = xz[..., :di], xz[..., di:]
-    bc = x_in @ p.w_bc                                      # (B, S, 2n)
+    bc = mm(x_in, p.w_bc, "w_bc")                           # (B, S, 2n)
     b_t, c_t = bc[..., :n], bc[..., n:]
-    dt = softplus((x_in @ p.w_dt) @ p.w_dt_up + p.dt_bias)  # (B, S, di)
-    a = -torch.exp(p.a_log.to(torch.float32))               # (di, n)
+    dt = softplus(mm(mm(x_in, p.w_dt, "w_dt"), p.w_dt_up, "w_dt_up")
+                  + p.dt_bias)                              # (B, S, di)
+    a = -torch.exp(a_log.to(torch.float32))                 # (di, n)
     return x_in, z, b_t, c_t, dt, a
 
 
-def _finish(p: MambaParams, y, x_in, z):
+def _finish(p: MambaParams, y, x_in, z, tp=None):
     y = y + p.d_skip * x_in
-    return (y * F.silu(z)) @ p.out_proj
+    return linear(y * F.silu(z), p.out_proj, tp, "mamba.out_proj")
 
 
 def _step(h, a, x_t, b_t, c_t, dt_t, dtype):
@@ -105,8 +114,9 @@ def mamba_assoc_scan(p: MambaParams, x: torch.Tensor,
     return _finish(p, y, x_in, z), u[:, -1]
 
 
-def mamba_decode_step(p: MambaParams, x: torch.Tensor, h: torch.Tensor):
+def mamba_decode_step(p: MambaParams, x: torch.Tensor, h: torch.Tensor,
+                      tp=None):
     """x: (B, 1, d), h: (B, di, n) → (y: (B, 1, d), h')."""
-    x_in, z, b_t, c_t, dt, a = _inputs(p, x)
+    x_in, z, b_t, c_t, dt, a = _inputs(p, x, tp)
     h, y = _step(h, a, x_in[:, 0], b_t[:, 0], c_t[:, 0], dt[:, 0], x.dtype)
-    return _finish(p, y[:, None, :], x_in, z), h
+    return _finish(p, y[:, None, :], x_in, z, tp), h

@@ -12,6 +12,11 @@ matrix R. The reference's `lax.scan`s over time are Python loops here, one
 step's ops per token; `log_sigmoid` is the reference's −logaddexp(−x, 0)
 and the stabilizer starts at −1e30. The scanned unit of `xlstm_pair` is an
 (mLSTM, sLSTM) pair.
+
+Both blocks take `tp` (a `dist.sharding.ModelShard`) when the weights are
+a rank's slices: each product's output is gathered (the mLSTM's in one
+all-gather) or its row-split partials summed, and R is read whole, so
+every rank updates the same states from the same inputs.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.layers import log_sigmoid
+from repro_torch.models.layers import linear, log_sigmoid
 
 
 class MLSTMParams(NamedTuple):
@@ -94,43 +99,53 @@ def _mlstm_step(q, k, v, i_pre, f_pre, state: MLSTMState):
     return MLSTMState(c, n, m_new), num / den[..., None]      # h (B,H,dh)
 
 
+_MLSTM_IN = ("wq", "wk", "wv", "wi", "wf", "wo")
+
+
 def mlstm_block(p: MLSTMParams, x: torch.Tensor, heads: int,
-                state: Optional[MLSTMState] = None):
+                state: Optional[MLSTMState] = None, tp=None):
     """x: (B, S, d) → (y: (B, S, d), final state)."""
     bsz, s, _ = x.shape
-    dh = p.wq.shape[-1] // heads
+    ws = [getattr(p, name) for name in _MLSTM_IN]
+    if tp is None:
+        q, k, v, i_pre, f_pre, o_pre = [x @ w for w in ws]
+    else:
+        q, k, v, i_pre, f_pre, o_pre = tp.linears(
+            x, [(w, f"mlstm.{name}") for w, name in zip(ws, _MLSTM_IN)])
+    dh = q.shape[-1] // heads
     if state is None:
         state = mlstm_zero_state(bsz, heads, dh, x.device)
-    q = (x @ p.wq).reshape(bsz, s, heads, dh)
-    k = (x @ p.wk).reshape(bsz, s, heads, dh) * dh ** -0.5
-    v = (x @ p.wv).reshape(bsz, s, heads, dh)
-    i_pre = (x @ p.wi).reshape(bsz, s, heads)
-    f_pre = (x @ p.wf).reshape(bsz, s, heads)
-    o_gate = torch.sigmoid(x @ p.wo)                          # (B, S, d)
+    q = q.reshape(bsz, s, heads, dh)
+    k = k.reshape(bsz, s, heads, dh) * dh ** -0.5
+    v = v.reshape(bsz, s, heads, dh)
+    i_pre = i_pre.reshape(bsz, s, heads)
+    f_pre = f_pre.reshape(bsz, s, heads)
+    o_gate = torch.sigmoid(o_pre)                             # (B, S, d)
     hs = []
     for t in range(s):
         state, h = _mlstm_step(q[:, t], k[:, t], v[:, t], i_pre[:, t],
                                f_pre[:, t], state)
         hs.append(h)
     h = torch.stack(hs, dim=1).reshape(bsz, s, heads * dh).to(x.dtype)
-    return o_gate * (h @ p.w_out), state
+    return o_gate * linear(h, p.w_out, tp, "mlstm.w_out"), state
 
 
 def mlstm_decode_step(p: MLSTMParams, x: torch.Tensor, heads: int,
-                      state: MLSTMState):
+                      state: MLSTMState, tp=None):
     """x: (B, 1, d) → (y: (B, 1, d), state')."""
-    return mlstm_block(p, x, heads, state)
+    return mlstm_block(p, x, heads, state, tp)
 
 
 def slstm_block(p: SLSTMParams, x: torch.Tensor, heads: int,
-                state: Optional[SLSTMState] = None):
+                state: Optional[SLSTMState] = None, tp=None):
     """x: (B, S, d) → (y, final state). Gates see h_{t−1} via per-head R."""
     bsz, s, d = x.shape
     dh = d // heads
     if state is None:
         state = slstm_zero_state(bsz, d, x.device)
-    pre_in = x @ p.w_in                                       # (B, S, 4d)
-    r_rec = p.r_rec.to(torch.float32)
+    pre_in = linear(x, p.w_in, tp, "slstm.w_in")              # (B, S, 4d)
+    r_rec = (p.r_rec if tp is None
+             else tp.weight(p.r_rec, "slstm.r_rec")).to(torch.float32)
     c, n, h = state
     hs = []
     for t in range(s):
@@ -146,10 +161,11 @@ def slstm_block(p: SLSTMParams, x: torch.Tensor, heads: int,
         n = f_g * n + i_g
         h = o * c / torch.clamp_min(torch.abs(n), 1.0)
         hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype) @ p.w_out
+    y = linear(torch.stack(hs, dim=1).to(x.dtype), p.w_out, tp,
+               "slstm.w_out")
     return y, SLSTMState(c, n, h)
 
 
 def slstm_decode_step(p: SLSTMParams, x: torch.Tensor, heads: int,
-                      state: SLSTMState):
-    return slstm_block(p, x, heads, state)
+                      state: SLSTMState, tp=None):
+    return slstm_block(p, x, heads, state, tp)

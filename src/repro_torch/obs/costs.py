@@ -28,6 +28,7 @@ import os
 from typing import Optional
 
 from repro_torch import tree as tree_lib
+from repro_torch.kernels import cost
 
 # ---------------------------------------------------------------------------
 # Peak table (device-name prefix first, backend fallback): dense f32 FLOP/s
@@ -35,7 +36,7 @@ from repro_torch import tree as tree_lib
 # peak is the roof. Override with REPRO_PEAK_FLOPS / REPRO_PEAK_BYTES.
 # ---------------------------------------------------------------------------
 DEVICE_PEAKS = (
-    ("NVIDIA H100", 67e12, 3.35e12),       # H100 SXM data sheet
+    ("NVIDIA H100", cost.PEAK_F32_FLOP_S, cost.PEAK_BYTES_S),
 )
 BACKEND_PEAKS = {
     "gpu": (1.0e14, 2.0e12),
@@ -179,9 +180,8 @@ def _extract(rec: dict) -> dict:
         if op is None:
             out["reason"] = EAGER_REASON
         else:
-            from repro_torch.kernels import cost as kcost  # noqa: PLC0415
-            nbytes, flops = kcost.program_cost(op, rec["args"],
-                                               rec["kwargs"], rec["static"])
+            nbytes, flops = cost.program_cost(op, rec["args"],
+                                              rec["kwargs"], rec["static"])
             out.update(source="analytic", flops=float(flops),
                        bytes_accessed=float(nbytes), available=True)
     except Exception as e:

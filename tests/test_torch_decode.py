@@ -173,8 +173,12 @@ def test_serve_step_refuses_a_mesh_and_other_blocks(base):
     assert bool(torch.isfinite(logits).all())
     with pytest.raises(ValueError, match="serve step on meta"):
         TS.make_serve_step(tcfg, "meta")(tparams, st, tok)
-    with pytest.raises(NotImplementedError, match="one device"):
+    # a malformed mesh and an encoder-only config are refused (a mesh of
+    # ranks is served: tests/test_torch_tensor_parallel.py)
+    with pytest.raises(ValueError, match="a serve step takes"):
         TS.make_serve_step(tcfg, mesh=("cuda:0", "cuda:1"))
+    with pytest.raises(ValueError, match="encoder-only"):
+        TS.make_serve_step(tconfigs.get_reduced("hubert-xlarge"))
     # the other blocks decode too: an attn_moe state has the reference's
     # leaves, shapes and dtypes (the KV cache only; experts are stateless)
     moe = dataclasses.replace(tcfg, block="attn_moe", num_experts=4)

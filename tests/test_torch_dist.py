@@ -534,9 +534,17 @@ def test_one_worker_group_equals_no_group(tmp_path):
 
 
 def test_raises():
+    """The refusals that remain: a mesh of ranks needs torch.distributed
+    initialized and axes >= 1; the production layout starts no ranks; a
+    serve step takes no malformed mesh (the model axis itself is served,
+    tests/test_torch_tensor_parallel.py)."""
     from repro_torch import fed as tfed
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="initialized"):
         TMESH.make_host_group(data=1, model=2)
+    with pytest.raises(ValueError, match="axes must be"):
+        TMESH.make_host_group(data=0, model=2)
+    with pytest.raises(ValueError, match="torchrun"):
+        TMESH.make_production_mesh(start_ranks=True)
     with pytest.raises(ValueError, match="use_cohorts"):
         tfed.Federation(lambda p, b: p["x"].sum(), {"x": torch.zeros(4)},
                         [{"a": torch.zeros(2, 4)}] * 2,
@@ -545,9 +553,12 @@ def test_raises():
     with pytest.raises(ValueError, match="make_zero_train_step"):
         TS.make_train_step(tconfigs.get_reduced("yi-6b"), TO.sgd(0.1),
                            TG.GradCompConfig(strategy="alltoall_zero1"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="a serve step takes"):
         TS.make_serve_step(tconfigs.get_reduced("yi-6b"),
                            mesh=("cuda:0", "cuda:1"))
+    with pytest.raises(ValueError, match="no ranks"):
+        TS.make_serve_step(tconfigs.get_reduced("yi-6b"),
+                           mesh=TMESH.make_production_mesh())
 
 
 def test_state_specs_and_serve_specs_at_one_worker():

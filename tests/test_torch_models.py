@@ -209,7 +209,7 @@ def test_param_tree_and_counts_match_jax(arch):
         TSH.param_specs(tshapes, 16),
         is_leaf=lambda s: isinstance(s, tuple) and not hasattr(s, "_fields"))
     assert [tuple(s) for s in jspecs] == tspecs
-    meta = TS._meta_params(tcfg)
+    meta = TS.meta_params(tcfg)
     assert [tuple(x.shape) for x in tree_lib.leaves(meta)] == \
         tree_lib.leaves(tshapes, is_leaf=TM.is_shape)
 

@@ -196,13 +196,13 @@ def test_train_refuses_cpu_fallback():
 
 
 def test_more_workers_raise(setup):
-    """More workers need torch.distributed initialized in each rank (the
-    multi-worker step itself: tests/test_torch_dist.py); a model axis > 1
-    is not ported."""
+    """More workers, and a model axis > 1, need torch.distributed
+    initialized in each rank (the multi-worker steps themselves:
+    tests/test_torch_dist.py, tests/test_torch_tensor_parallel.py)."""
     from repro_torch.launch import mesh as TMESH
     with pytest.raises(RuntimeError, match="torch.distributed"):
         TMESH.make_host_group(data=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         TMESH.make_host_group(data=1, model=2)
 
 
