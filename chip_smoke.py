@@ -61,13 +61,16 @@ prints its seconds):
      vocab 64000) cut to 4 of its 32 layers: 3 steps at the launcher's
      defaults (batch 8, seq 128, R = 4, allgather_packed, error feedback);
      encode_ef, unpack_dequant and fwht must launch 12 times per step;
+     the graph arm of 17a (the step is a captured program: its first
+     call runs eagerly and captures, later calls replay);
   5. 2 more steps with --dithered --keep-fraction 0.5 at 1 layer, which
-     runs the plain encode kernel with its dither and mask;
+     runs the plain encode kernel with its dither and mask (the graph arm
+     of 17b);
   5b. 2 steps at 1 layer with chunk 16384 (R 4, allgather_packed, EF):
      encode_ef, unpack_dequant and fwht (all through their passes) must
      launch 12 times per step; finite loss and params; the wq leaf's
      words, scales and EF residual (first and last 64 chunks) bitwise its
-     CPU encode;
+     CPU encode (the graph arm of 17c);
   6. the reduced yi-6b for 2 steps on the card and on the CPU from the same
      weights and tokens: losses and parameters must agree;
   7. serve yi-6b at full width and all 32 layers through the 8-bit NDSC KV
@@ -115,12 +118,13 @@ prints its seconds):
      benchmarks/fed_heterogeneous at its own size (m 8, dim 128, 256
      examples per client, 50 rounds, norm-proportional budgets around
      R̄ = 1, chunk 64), fedavg and fedmem at 50% participation with 20%
-     stragglers, card against the port's CPU run: the ledger and the
-     participants identical, params within 1e-4 relative (the loss summed
-     in f64; the f32 loss's gap reported), and cohort against scalar
-     bitwise on the card; c. fed_cohort_scaling's m 512 (dim 128, 32 per
-     client, ndsc R 2): a round cohort against scalar bitwise, one
-     encode_ef and one unpack_dequant launch per leaf per cohort round,
+     stragglers (the graph arm of 17d), card against the port's CPU run:
+     the ledger and the participants identical, params within 1e-4
+     relative (the loss summed in f64; the f32 loss's gap reported), and
+     cohort against scalar bitwise on the card; c. fed_cohort_scaling's m
+     512 (dim 128, 32 per client, ndsc R 2; the graph arm of 17e): a
+     round cohort against scalar bitwise, one encode_ef and one
+     unpack_dequant launch per leaf per cohort round,
      rounds per second on the card and the CPU; d. fed_aggregate_scaling's
      tree (dim 1024) at m 512: sequential aggregate_stacked bitwise the
      list aggregate (fedavg, fedopt), with pairwise's gap and each
@@ -130,7 +134,8 @@ prints its seconds):
      launches), checked bitwise, timed with its bound;
  11. distributed consensus and the mesh federation (repro_torch.dist,
      repro_torch.fed.mesh): a. one NCCL rank in this process at phase 4's
-     size: 2 steps of launch.train.train(group=...) bitwise the same 2
+     size (the graph arm of 17f: NCCL's collectives are captured with
+     the step): 2 steps of launch.train.train(group=...) bitwise the same 2
      steps with group=None (loss and params), then alltoall_zero1 against
      allgather_packed (AdamW, no clip) bitwise after one step, with s/step
      and launches per step (12 encode_ef, unpack_dequant and fwht for the
@@ -161,10 +166,13 @@ prints its seconds):
      layers (10,418,903,040 values), served through the 8-bit cache with
      phase 7's traffic and checks (launches per decode step 4, 8, 12; per
      prefill 8 and 8), with its weight-read floor; b. the same cut to 1
-     layer (2,906,720,256 values, 13 leaves) trained 2 steps of
+     layer (2,906,720,256 values, 13 leaves) trained 3 steps of
      allgather_packed with EF (R 4, chunk 256, batch 8, seq 128) with SGD
-     and no clip (AdamW's functional update does not fit the card at this
-     size): 13 launches of encode_ef, unpack_dequant and fwht per step,
+     and no clip (AdamW's update does not fit the card at this size):
+     the first inside graph.eager(), the second capturing, the third
+     replayed, each step's peak memory, the capture's within 5% of the
+     eager step's; 13 launches of encode_ef, unpack_dequant and fwht per
+     step,
      finite loss and params, and the e_gate leaf's words, scales and EF
      residual on rows across and past 2^31 bytes into the leaf bitwise its
      CPU encode; c. hymba-1.5b at full width and all 32 layers through
@@ -175,7 +183,8 @@ prints its seconds):
      served past the window of 64 (logits within SMALL_LOGIT_TOL, greedy
      tokens equal), and two card runs of the MoE forward and backward
      bitwise; e. xlstm-350m at full width and all 24 layers, 2 steps of
-     launch.train.train (15 launches per kernel per step);
+     launch.train.train (15 launches per kernel per step; the graph arm
+     of 17g);
  14. checkpointing and observability (repro_torch.checkpoint,
      repro_torch.obs), after phase 13: a. fed_heterogeneous at its own
      size (phase 10b's problem and budgets, adaptive norm-proportional
@@ -250,6 +259,28 @@ prints its seconds):
      logits within SMALL_LOGIT_TOL; d. the reduced yi-6b trained 2 steps
      of allgather_packed with EF at (2, 2) and at (2, 1): every rank's
      whole params and AdamW state bitwise equal;
+ 17. the captured training programs (repro_torch.graph: dist.step,
+     dist.step.zero1, the federation's client rounds, decodes and
+     aggregates), each part right after its graph arm, so that no arm's
+     state is held across phases: the arm's runs again inside
+     graph.eager() from the same seed (its own step, a fresh state, the
+     same batches), bitwise: a. phase 4 (yi-6b x4: every loss, params,
+     AdamW moments and step, EF), after TRAIN_TURNS pairs of an eager and
+     a replayed step in turns on the graph arm's state (s/step, host µs of
+     the step call, peak memory of an eager step against the captured
+     step's, the capture seconds, the graph pool's bytes, 12 launches per
+     kernel per step in both arms); b. phase 5 (dithered, keep 0.5); c.
+     phase 5b (chunk 16384); d. 10b's card runs with the f64 loss (ledger,
+     participants, params, client states); e. 10c's m 512 rounds (params,
+     client states, the first round's record), the cohort round program's
+     wires and states on one round's inputs, then FED_TURNS pairs of
+     rounds in turns (rounds/s, host µs of the cohort program's call,
+     one encode_ef and one unpack_dequant a round in both arms, peak
+     memory, the programs' capture seconds, the graph pool's bytes); f.
+     11a's NCCL world of 1 (its 2 steps) and its ZeRO-1 and all-gather
+     steps; g. 13e (xlstm-350m), then XLSTM_TURNS pairs in turns as in
+     a. 11b-d's gloo ranks and 16's meshes stay eager: gloo's collectives
+     are host calls a graph cannot hold;
  12. print {"kernels": [...]} and, last, the device line.
 
 Without CUDA it exits non-zero before printing any result. Nothing here
@@ -663,7 +694,7 @@ PROGRAM_NAMES = ("serve.decode_step", "serve.prefill", "serve.extend",
 
 def bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
     return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
 
 
 def graph_pool_bytes() -> int:
@@ -966,15 +997,20 @@ def moe_serve_phase(dev, cfg=None, keep=None) -> tuple:
 
 
 def moe_train_phase(dev, cfg=None, batch: int = 8, seq: int = 128) -> dict:
-    """13b: mixtral-8x22b at full width, MOE_TRAIN_LAYERS layer, 2 steps of
+    """13b: mixtral-8x22b at full width, MOE_TRAIN_LAYERS layer, 3 steps of
     allgather_packed with EF (R 4, chunk 256) and SGD without clip:
-    AdamW's functional update holds the params, grads, clipped grads, EF
-    and old and new moments at once, ~104 GB at 2.91e9 values, past the
-    card's 80 GB. encode_ef, unpack_dequant and fwht launch once per leaf
-    per step; loss and params finite; then an expert leaf's payload (words,
-    scales, EF residual) on rows past 2^31 bytes into the leaf bitwise its
-    CPU encode."""
+    AdamW's update holds the params, grads, clipped grads, EF and old and
+    new moments at once, ~104 GB at 2.91e9 values, past the card's 80 GB.
+    The first step runs inside graph.eager(), the second captures the
+    step's graph (its first call), the third replays it: each step's peak
+    memory, the capture's allocated and reserved peaks within PEAK_SLACK
+    of the eager step's.
+    encode_ef, unpack_dequant and fwht launch once per leaf per step; loss
+    and params finite; then an expert leaf's payload (words, scales, EF
+    residual) on rows past 2^31 bytes into the leaf bitwise its CPU
+    encode."""
     from repro_torch import configs
+    from repro_torch import graph
     from repro_torch import tree as tree_lib
     from repro_torch.data.pipeline import batch_for_shape
     from repro_torch.dist import gradcomp as G
@@ -994,15 +1030,19 @@ def moe_train_phase(dev, cfg=None, batch: int = 8, seq: int = 128) -> dict:
     n_leaves, n_values = len(leaves), sum(x.numel() for x in leaves)
     log(f"[13b train mixtral x1] {n_leaves} leaves, {n_values} values, "
         f"largest {max(x.numel() for x in leaves)}")
-    losses, secs, per_step = [], [], []
+    losses, secs, per_step, peaks = [], [], [], {}
     ops.reset_launch_counts()
-    for s in range(2):
+    for s, arm in enumerate(("eager", "capture", "replay")):
         b = batch_for_shape(cfg, batch, seq, s, 0, device=dev)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        params, opt_state, ef, m = step(params, opt_state, ef, b)
+        with graph.eager() if arm == "eager" else contextlib.nullcontext():
+            params, opt_state, ef, m = step(params, opt_state, ef, b)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
+        peaks[arm] = (torch.cuda.max_memory_allocated() / 1e9,
+                      torch.cuda.max_memory_reserved() / 1e9)
         losses.append(float(m["loss"]))
         per_step.append(ops.launch_counts())
     counts = per_step[-1]
@@ -1014,11 +1054,17 @@ def moe_train_phase(dev, cfg=None, batch: int = 8, seq: int = 128) -> dict:
                                      f"{c[k] - prev[k]} times, want "
                                      f"{n_leaves}")
         prev = c
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = max(v[0] for v in peaks.values())
     if not (all(map(math.isfinite, losses)) and all(
             bool(torch.isfinite(x).all()) for x in tree_lib.leaves(params))):
         raise AssertionError(f"13b: non-finite loss or params {losses}")
-    del opt_state, ef, m, b
+    if any(c > PEAK_SLACK * e for c, e in zip(peaks["capture"],
+                                              peaks["eager"])):
+        raise AssertionError(f"13b: the capture's peak {peaks['capture']} "
+                             f"> {PEAK_SLACK} x the eager step's "
+                             f"{peaks['eager']} (GB allocated, reserved)")
+    capture_s = step.program.capture_s
+    del opt_state, ef, m, b, step
     torch.cuda.empty_cache()
 
     # the expert leaf e_gate (E, d, f) through the codec's leaf encode on
@@ -1046,6 +1092,7 @@ def moe_train_phase(dev, cfg=None, batch: int = 8, seq: int = 128) -> dict:
         checked.append([r0, r0 + 64, (r0 + 64) * gc.chunk * 4])
     out = {"leaves": n_leaves, "values": n_values, "losses": losses,
            "step_s": secs, "peak_mem_GB": peak_gb, "launches": counts,
+           "peak_GB_allocated_reserved": peaks, "capture_s": capture_s,
            "optimizer": f"sgd({MOE_TRAIN_LR}), no clip",
            "e_gate_rows": rows, "rows_checked_bitwise": checked}
     log(f"[13b train mixtral x1] {json.dumps(out)}")
@@ -1729,8 +1776,11 @@ def run_fed(dev, shards, lr, codecs_, loss_fn, server_kw, fed_kw, rounds,
 
 
 def fed_phase(dev) -> dict:
-    """10b-d (see the constants above)."""
-    from repro_torch import codecs, fed
+    """10b-d (see the constants above). The federation's programs are
+    captured (client rounds, decodes, aggregates); 17d and 17e run 10b's
+    card runs (f64 loss) and 10c's rounds again inside graph.eager() and
+    hold them bitwise, then 10c's rounds graph and eager in turns."""
+    from repro_torch import codecs, fed, graph
     from repro_torch import tree as tree_lib
     from repro_torch.fed import budget
     from repro_torch.kernels import ops
@@ -1768,6 +1818,20 @@ def fed_phase(dev) -> dict:
             # the CPU: its gap is reported, the f64 loss's is held
             if loss_name == "f64 loss" and gap > FED_TOL:
                 raise AssertionError(f"10b {label}: params gap {gap}")
+            if loss_name == "f64 loss":
+                # 17d: the card run again inside graph.eager(): ledger,
+                # participants, params and client states bitwise
+                with graph.eager():
+                    fe, he, eager_s = run_fed(dev, shards, lr, cs, loss_fn,
+                                              server_kw, fed_kw, FED_ROUNDS)
+                if not (he == hc and same_bits(fe.server, fc.server)
+                        and same_bits(fe.states, fc.states)):
+                    raise AssertionError(f"17d {label}: the eager run "
+                                         "differs from the graph arm")
+                r["17d_eager_s"] = eager_s
+                log(f"[17d] {label}: graph == eager bitwise (ledger, "
+                    f"participants, params, client states); card s graph "
+                    f"{card_s}, eager {eager_s}")
             out["b"][f"{label}, {loss_name}"] = r
             log(f"[fed b] {label}, {loss_name}: " + json.dumps(r))
     shared = codecs.make("ndsc", 1.0, chunk=FED_CHUNK)
@@ -1800,6 +1864,7 @@ def fed_phase(dev) -> dict:
     rc = fc.run_round(cfg, 0)
     _sync(dev)
     first_s = time.perf_counter() - t
+    played = [0]                          # the rounds fc runs, in order
     t = time.perf_counter()
     rs = fs.run_round(cfg, 0)
     _sync(dev)
@@ -1822,10 +1887,13 @@ def fed_phase(dev) -> dict:
             f.run_round(cfg, r)
         _sync(d)
         rps[label] = COHORT_ROUNDS / (time.perf_counter() - t)
+    played += [1, 1] + list(range(2, 2 + COHORT_ROUNDS))
     out["c"] = {"rounds_per_s": rps, "launches_per_round": counts,
                 "first_round_s": first_s, "scalar_round_s": scalar_s,
                 "wire_bytes_per_round": rc["wire_bytes"]}
     log("[fed c] m 512: " + json.dumps(out["c"]))
+    out["c"]["17e"] = cohort_graph_phase(dev, fc, lambda: make(dev, True),
+                                         cfg, played, rc)
 
     # d. server folds on fed_aggregate_scaling's tree at m 512
     g = torch.Generator(device=dev)
@@ -2107,9 +2175,14 @@ def _leaves_equal(a, b) -> bool:
 def one_rank_phase(dev, cfg4, gc_ef) -> dict:
     """11a: train(group=...) on an NCCL world of 1 against group=None
     (loss and params bitwise), then ZeRO-1 against all-gather after one
-    step (clip off, AdamW), with s/step and launches per step."""
+    step (clip off, AdamW), with s/step and launches per step. Every step
+    is a captured program (NCCL's collectives are queued on the stream);
+    17f: the group's steps and each one-step run again inside
+    graph.eager(), from the same seed: loss, params, optimizer state and
+    EF bitwise."""
     import tempfile
     import torch.distributed as dist
+    from repro_torch import graph
     from repro_torch import tree as tree_lib
     from repro_torch.data.pipeline import batch_for_shape
     from repro_torch.dist import step as step_lib
@@ -2124,14 +2197,20 @@ def one_rank_phase(dev, cfg4, gc_ef) -> dict:
         try:
             out["backend"] = dist.get_backend(group)
             log(f"[dist a] world of 1, backend {out['backend']}")
-            runs = {}
+            runs, box = {}, {}
             for label, g in (("group", group), ("none", None)):
                 ops.reset_launch_counts()
-                params, losses, secs = train(cfg4, steps=DIST_STEPS,
-                                             batch_size=8, seq_len=128,
-                                             gc=gc_ef, lr=3e-4, log_every=1,
-                                             device=dev, group=g)
+                with (kept_train(box) if label == "group"
+                      else contextlib.nullcontext()):
+                    params, losses, secs = train(
+                        cfg4, steps=DIST_STEPS, batch_size=8, seq_len=128,
+                        gc=gc_ef, lr=3e-4, log_every=1, device=dev, group=g)
                 counts = ops.launch_counts()
+                if label == "group":
+                    # its state stays for 17f; its graphs' pool would not
+                    # fit beside the next run
+                    box["step"].program._graphs.clear()
+                    torch.cuda.empty_cache()
                 runs[label] = (tree_lib.leaves(params), losses, secs, counts)
                 if label == "group":
                     for k in ("encode_ef", "unpack_dequant", "fwht"):
@@ -2145,21 +2224,25 @@ def one_rank_phase(dev, cfg4, gc_ef) -> dict:
                         "launches": {k: v for k, v in cg.items() if v}})
             del runs, pg, pn
             torch.cuda.empty_cache()
+            box["losses"] = list(lg)
+            out["17f group eager rerun"] = eager_rerun(
+                dev, cfg4, gc_ef, box, "f NCCL world of 1")
+            del box
 
             batch = batch_for_shape(cfg4, 8, 128, 0, 0, device=dev)
-            res = {}
+            res, eager_s = {}, {}
             for strategy in ("alltoall_zero1", "allgather_packed"):
                 gc = dataclasses.replace(gc_ef, strategy=strategy)
                 opt = optim.adamw(optim.warmup_cosine(3e-4, 1, 3),
                                   weight_decay=0.1)
                 if strategy == "alltoall_zero1":
-                    st = step_lib.init_zero_state(cfg4, opt, gc, group,
-                                                  seed=0, device=dev)
-                    fn = step_lib.make_zero_train_step(cfg4, opt, gc, group)
+                    init, make = (step_lib.init_zero_state,
+                                  step_lib.make_zero_train_step)
                 else:
-                    st = step_lib.init_train_state(cfg4, opt, gc, group,
-                                                   seed=0, device=dev)
-                    fn = step_lib.make_train_step(cfg4, opt, gc, group)
+                    init, make = (step_lib.init_train_state,
+                                  step_lib.make_train_step)
+                fn = make(cfg4, opt, gc, group)
+                st = init(cfg4, opt, gc, group, seed=0, device=dev)
                 ops.reset_launch_counts()
                 torch.cuda.synchronize()
                 t = time.perf_counter()
@@ -2169,7 +2252,20 @@ def one_rank_phase(dev, cfg4, gc_ef) -> dict:
                                  time.perf_counter() - t,
                                  {k: v for k, v in ops.launch_counts().items()
                                   if v})
-                del st
+                # 17f: the same step inside graph.eager(), from the seed
+                fn.program._graphs.clear()
+                torch.cuda.empty_cache()
+                st_e = init(cfg4, opt, gc, group, seed=0, device=dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with graph.eager():
+                    st_e = fn(*st_e, batch)
+                torch.cuda.synchronize()
+                eager_s[strategy] = time.perf_counter() - t
+                if not same_bits(st, st_e):
+                    raise AssertionError(f"17f: {strategy}'s step differs "
+                                         "inside graph.eager()")
+                del st, st_e, fn
                 torch.cuda.empty_cache()
             want = {"alltoall_zero1": {"encode": 12, "unpack_dequant": 24,
                                        "fwht": 24},
@@ -2184,7 +2280,9 @@ def one_rank_phase(dev, cfg4, gc_ef) -> dict:
                         o, p.numel(), tuple(p.shape), p.dtype), p):
                     raise AssertionError("11a: ZeRO-1 != all-gather")
             out["zero1_vs_allgather"] = {
-                k: {"step_s": v[1], "launches": v[2]} for k, v in res.items()}
+                k: {"step_s": v[1], "eager_step_s": eager_s[k],
+                    "launches": v[2], "graph_eq_eager_bitwise": True}
+                for k, v in res.items()}
             del res, owned, full
         finally:
             dist.destroy_process_group()
@@ -3335,8 +3433,10 @@ def train_obs_phase(dev, cfg, gc, steps: int = 2) -> dict:
     """14d: `steps` train steps of `cfg` (phase 4's size and launcher
     optimizer) with obs on, bitwise the same steps with obs off from the
     same state; dist.payload_bytes per step equal to wire_bytes_tree's
-    payload; kernels.dispatch 12 per kernel per step, equal to the
-    launches."""
+    payload; 12 launches per kernel per step, and kernels.dispatch equal
+    to what the step's Python ran: its launches, less those its graph
+    replayed, plus those its capture recorded (the first step runs
+    eagerly and captures: 24 dispatches; a replay dispatches none)."""
     from repro_torch import obs
     from repro_torch import tree as tree_lib
     from repro_torch.data.pipeline import batch_for_shape
@@ -3355,6 +3455,8 @@ def train_obs_phase(dev, cfg, gc, steps: int = 2) -> dict:
             for s in range(steps):
                 batch = batch_for_shape(cfg, 8, 128, s, 0, device=dev)
                 n0 = len(session.memory_events()) if session else 0
+                g0 = (collections.Counter(fn.program.replayed),
+                      collections.Counter(fn.program.captured))
                 (p, o, ef, m), launches = _counted(
                     lambda: fn(p, o, ef, batch))
                 torch.cuda.synchronize()
@@ -3368,8 +3470,12 @@ def train_obs_phase(dev, cfg, gc, steps: int = 2) -> dict:
                                 e["attrs"]["op"], 0) + 1
                     payload = [e["value"] for e in new
                                if e["name"] == "dist.payload_bytes"]
+                    ran = {k: launches[k]
+                           - (fn.program.replayed[k] - g0[0][k])
+                           + (fn.program.captured[k] - g0[1][k])
+                           for k in EF_KERNELS}
                     per_step.append({"dispatch": got, "launches": launches,
-                                     "payload_bytes": payload})
+                                     "ran": ran, "payload_bytes": payload})
         finally:
             if session:
                 obs.disable()
@@ -3386,11 +3492,11 @@ def train_obs_phase(dev, cfg, gc, steps: int = 2) -> dict:
     for s, r in enumerate(per_step):
         if r["payload_bytes"] != [float(audit)]:
             raise AssertionError(f"14d: step {s} payload {r}, audit {audit}")
-        if r["dispatch"] != {k: 12 for k in EF_KERNELS} or \
-                r["dispatch"] != r["launches"]:
+        if r["launches"] != {k: 12 for k in EF_KERNELS} or \
+                r["dispatch"] != {k: n for k, n in r["ran"].items() if n}:
             raise AssertionError(f"14d: step {s}: {r}")
     out = {"losses": on_losses, "payload_bytes_per_step": audit,
-           "dispatch_per_step": per_step[0]["dispatch"]}
+           "dispatch_per_step": [r["dispatch"] for r in per_step]}
     log("[14d] train x%d under obs == obs off, bitwise; %s"
         % (cfg.num_layers, json.dumps(out)))
     del p_on, p_off
@@ -3679,6 +3785,236 @@ def graph_timing_phase(dev, cfg, label: str, traffic: dict) -> dict:
     return out
 
 
+# -- phase 17: the captured training programs (repro_torch.graph) ----------
+# Phases 4, 5, 5b, 10b, 10c, 11a and 13e are the graph arm; right after
+# each, its runs again inside graph.eager() from the same seed, held bitwise
+# (run beside each arm, so that no arm's state is held across phases), and
+# for yi-6b x4, xlstm-350m and the m 512 round, graph and eager in turns.
+TRAIN_TURNS = 3           # 17a: pairs of a graph and an eager yi-6b x4 step
+XLSTM_TURNS = 1           # 17g: the same for xlstm-350m (~8 s an eager step)
+FED_TURNS = 4             # 17e: pairs of a graph and an eager m 512 round
+PEAK_SLACK = 1.05         # a capture's peak against an eager step's
+
+
+@contextlib.contextmanager
+def kept_train(box: dict):
+    """launch.train.train's own step and state, kept in `box` ("step",
+    "state"): the step updates the state in place, so after train()
+    returns, box["state"] is the state after its last step."""
+    from repro_torch.dist import step as step_lib
+    make, init = step_lib.make_train_step, step_lib.init_train_state
+
+    def making(*a, **k):
+        box["step"] = make(*a, **k)
+        return box["step"]
+
+    def initing(*a, **k):
+        box["state"] = init(*a, **k)
+        return box["state"]
+
+    step_lib.make_train_step, step_lib.init_train_state = making, initing
+    try:
+        yield box
+    finally:
+        step_lib.make_train_step, step_lib.init_train_state = make, init
+
+
+def same_bits(a, b) -> bool:
+    """Two trees whose leaves have equal shapes, dtypes and bits."""
+    from repro_torch import tree as tree_lib
+    la, lb = tree_lib.leaves(a), tree_lib.leaves(b)
+    return len(la) == len(lb) and all(map(bitwise, la, lb))
+
+
+def eager_rerun(dev, cfg, gc, box: dict, label: str,
+                drop_graphs: bool = True) -> dict:
+    """17: the graph arm's train step (`box`: kept_train's, with the
+    graph arm's "losses") run inside graph.eager() from a fresh state of
+    the same seed over the same batches (launch.train's): every loss and
+    the final params, optimizer state and EF bitwise the graph arm's.
+    `drop_graphs` frees the graph arm's graphs first (their pool would not
+    fit beside two states at yi-6b x4)."""
+    from repro_torch import graph
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import batch_for_shape
+    from repro_torch.dist import step as step_lib
+    from repro_torch.optimizer.optim import adamw
+    step = box["step"]
+    if drop_graphs:
+        step.program._graphs.clear()
+        torch.cuda.empty_cache()
+    state = step_lib.init_train_state(cfg, adamw(3e-4), gc, seed=0,
+                                      device=dev)
+    losses, secs = [], []
+    with graph.eager():
+        for s in range(len(box["losses"])):
+            batch = batch_for_shape(cfg, 8, 128, s, 0, device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            *state, m = step(*state, batch)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t)
+    if losses != box["losses"] or not same_bits(state, box["state"]):
+        raise AssertionError(f"17 {label}: the eager run differs from the "
+                             "graph arm")
+    out = {"steps": len(losses), "losses_bitwise": losses,
+           "state_leaves_bitwise": len(tree_lib.leaves(state)),
+           "eager_step_s": secs}
+    log(f"[17 {label}] graph == eager bitwise (loss, params, optimizer "
+        f"state, EF): {json.dumps(out)}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_turns(dev, cfg, box: dict, label: str, pairs: int,
+                n_leaves: int) -> dict:
+    """17: `pairs` rounds of one step inside graph.eager() and one step of
+    the captured program (its first graph step captures when it has no
+    graph for this state), in turns (e g g e ...), continuing the graph
+    arm's state and batches (`box`; its "losses" grow): s/step
+    (synchronized), host µs of the step call (no synchronize: what
+    enqueuing the step costs), each arm's peak memory (allocated and
+    reserved), the launches per step (`n_leaves` per kernel either way),
+    the program's capture seconds and the graph pool's bytes."""
+    from repro_torch import graph
+    from repro_torch.data.pipeline import batch_for_shape
+    from repro_torch.kernels import ops
+    step, state = box["step"], box["state"]
+    arms = ("eager", "graph")
+    secs = {a: [] for a in arms + ("capture",)}
+    host = {a: [] for a in arms + ("capture",)}
+    peak = {a: 0 for a in arms + ("capture",)}
+    reserved = dict(peak)
+    captures = len(step.program.capture_s)
+    for i in range(2 * pairs):
+        arm = arms[(i + i // 2) % 2]                  # e g g e e g ...
+        batch = batch_for_shape(cfg, 8, 128, len(box["losses"]), 0,
+                                device=dev)
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with graph.eager() if arm == "eager" else contextlib.nullcontext():
+            t = time.perf_counter()
+            *_, m = step(*state, batch)
+            h = time.perf_counter() - t
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t
+        if arm == "graph" and len(step.program.capture_s) > captures:
+            arm, captures = "capture", len(step.program.capture_s)
+        box["losses"].append(float(m["loss"]))
+        secs[arm].append(s)
+        host[arm].append(h * 1e6)
+        peak[arm] = max(peak[arm], torch.cuda.max_memory_allocated())
+        reserved[arm] = max(reserved[arm], torch.cuda.max_memory_reserved())
+        after = ops.launch_counts()
+        got = {k: after[k] - before[k] for k in EF_KERNELS}
+        if got != {k: n_leaves for k in EF_KERNELS}:
+            raise AssertionError(f"17 {label}: a {arm} step launched {got}")
+    out = {"s_per_step_median": {a: statistics.median(v)
+                                 for a, v in secs.items() if v},
+           "host_us_per_call_median": {a: statistics.median(v)
+                                       for a, v in host.items() if v},
+           "step_s": secs, "peak_mem_GB": {a: v / 1e9 for a, v in
+                                           peak.items() if v},
+           "peak_reserved_GB": {a: v / 1e9 for a, v in reserved.items()
+                                if v},
+           "capture_s": step.program.capture_s,
+           "specializations": step.program._cache_size(),
+           "graph_pool_bytes": graph_pool_bytes(), "pairs": pairs}
+    log(f"[17 {label}] graph and eager in turns: {json.dumps(out)}")
+    return out
+
+
+def cohort_graph_phase(dev, fc, make, cfg, played: list, rc: dict) -> dict:
+    """17e: 10c's m 512 federation `fc` (the graph arm, which ran the
+    rounds `played`, the first giving `rc`) against a fresh one (`make()`)
+    running them inside graph.eager(): the first round's record, the
+    params and every client state bitwise; its cohort round program on
+    one round's inputs with its graph and inside graph.eager(): wires and
+    states bitwise; then FED_TURNS pairs of one round inside graph.eager()
+    and one replayed, in turns (e g g e ...): seconds per round
+    (synchronized), host µs of the cohort program's call (no
+    synchronize), launches per round (one encode_ef and one
+    unpack_dequant either way), each arm's peak memory, the programs'
+    capture seconds and the graph pool's bytes."""
+    from repro_torch import graph
+    from repro_torch.fed import clients as clients_lib
+    from repro_torch.fed import server as server_lib
+    from repro_torch.kernels import ops
+    with graph.eager():
+        fe = make()
+        recs = [fe.run_round(cfg, r) for r in played]
+    _sync(dev)
+    if not (recs[0] == rc and same_bits(fe.server, fc.server)
+            and same_bits(fe.states, fc.states)):
+        raise AssertionError("17e: the eager rounds differ from the graph "
+                             "arm's")
+    del fe
+    ((key, program),) = fc._cohort_fns.items()
+    args = (fc.server.params, fc._stacked_data[key][1],
+            clients_lib.stack_trees(fc.states), len(played))
+    got = program(*args)
+    with graph.eager():
+        want = program(*args)
+    if not same_bits(got, want):
+        raise AssertionError("17e: the cohort round's wires or states "
+                             "differ inside graph.eager()")
+    del got, want, args
+    arms = ("eager", "graph")
+    secs = {a: [] for a in arms}
+    host = {a: [] for a in arms}
+    peak = {a: 0 for a in arms}
+    current = [None]
+
+    def timed_program(*a):
+        t = time.perf_counter()
+        out = program(*a)
+        host[current[0]].append((time.perf_counter() - t) * 1e6)
+        return out
+
+    fc._cohort_fns[key] = timed_program
+    try:
+        for i in range(2 * FED_TURNS):
+            current[0] = arm = arms[(i + i // 2) % 2]
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with graph.eager() if arm == "eager" else contextlib.nullcontext():
+                t = time.perf_counter()
+                fc.run_round(cfg, len(played) + i)
+                torch.cuda.synchronize()
+                secs[arm].append(time.perf_counter() - t)
+            peak[arm] = max(peak[arm], torch.cuda.max_memory_allocated())
+            after = ops.launch_counts()
+            if (after["encode_ef"] - before["encode_ef"] != 1
+                    or after["unpack_dequant"] - before["unpack_dequant"]
+                    != 1):
+                raise AssertionError(f"17e: a {arm} round launched "
+                                     f"{after} - {before}")
+    finally:
+        fc._cohort_fns[key] = program
+    programs = {"fed.round.cohort": program,
+                "fed.decode.cohort": fc._cohort_decode_fns[key],
+                "fed.aggregate.mean": server_lib._stacked_mean_fn(
+                    "sequential")}
+    out = {"eager_rerun_bitwise": {"rounds": played, "params": True,
+                                   "client_states": fc.num_clients},
+           "cohort_program_wires_bitwise": True,
+           "rounds_per_s": {a: len(v) / sum(v) for a, v in secs.items()},
+           "s_per_round": secs,
+           "host_us_per_cohort_call_median": {
+               a: statistics.median(v) for a, v in host.items()},
+           "peak_mem_GB": {a: v / 1e9 for a, v in peak.items()},
+           "capture_s": {n: p.capture_s for n, p in programs.items()},
+           "specializations": {n: p._cache_size()
+                               for n, p in programs.items()},
+           "graph_pool_bytes": graph_pool_bytes(), "pairs": FED_TURNS}
+    log(f"[17e m {fc.num_clients}] graph == eager bitwise; in turns: "
+        f"{json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -3903,11 +4239,15 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    params, losses, secs = train(cfg4, steps=3, batch_size=8, seq_len=128,
-                                 gc=gc_ef, lr=3e-4, log_every=1, device=dev,
-                                 on_step=count_step)
+    box4 = {}
+    with kept_train(box4):
+        params, losses, secs = train(cfg4, steps=3, batch_size=8,
+                                     seq_len=128, gc=gc_ef, lr=3e-4,
+                                     log_every=1, device=dev,
+                                     on_step=count_step)
     main_counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     prev = {k: 0 for k in main_counts}
     for s, counts in enumerate(per_step):
         for k in ("encode_ef", "unpack_dequant", "fwht"):
@@ -3922,16 +4262,38 @@ def main() -> int:
                for p in tree_lib.leaves(params)):
         raise AssertionError("non-finite parameters after training")
     log(f"[train x4] losses {losses} step_s {secs} launches {main_counts} "
-        f"peak_mem_GB {peak_gb:.2f}")
+        f"peak_mem_GB {peak_gb:.2f} capture_s "
+        f"{box4['step'].program.capture_s}")
     del params
-    torch.cuda.empty_cache()
     clock.done("4 train x4")
+
+    # -- 17a. phase 4 in turns with eager steps, then again inside eager ----
+    box4.update(losses=list(losses))
+    n12 = len(tree_lib.leaves(model_lib.param_shapes(cfg4),
+                              is_leaf=model_lib.is_shape))
+    p17 = {"a": {"turns": train_turns(dev, cfg4, box4, "a yi-6b x4",
+                                      TRAIN_TURNS, n12),
+                 "graph_arm_peak_mem_GB": peak_gb,
+                 "graph_arm_peak_reserved_GB": peak_reserved_gb,
+                 "graph_arm_step_s": secs}}
+    eager_peak = p17["a"]["turns"]["peak_mem_GB"]["eager"]
+    if peak_gb > PEAK_SLACK * eager_peak:
+        raise AssertionError(f"17a: the captured step's peak {peak_gb} GB "
+                             f"> {PEAK_SLACK} x the eager step's "
+                             f"{eager_peak} GB")
+    p17["a"]["eager_rerun"] = eager_rerun(dev, cfg4, gc_ef, box4,
+                                          "a yi-6b x4")
+    del box4
+    torch.cuda.empty_cache()
+    clock.done("17a yi-6b x4: graph and eager in turns, eager rerun")
 
     # -- 5. dithered, keep 0.5, 1 layer: the plain encode kernel --------------
     ops.reset_launch_counts()
-    params, losses1, secs1 = train(cfg1, steps=2, batch_size=8, seq_len=128,
-                                   gc=gc_dk, lr=3e-4, log_every=1,
-                                   device=dev)
+    box5 = {}
+    with kept_train(box5):
+        params, losses1, secs1 = train(cfg1, steps=2, batch_size=8,
+                                       seq_len=128, gc=gc_dk, lr=3e-4,
+                                       log_every=1, device=dev)
     dk_counts = ops.launch_counts()
     if dk_counts["encode"] != 24 or dk_counts["encode_ef"] != 0:
         raise AssertionError(f"dithered path launches {dk_counts}")
@@ -3940,12 +4302,21 @@ def main() -> int:
     log(f"[train x1 dithered keep0.5] losses {losses1} step_s {secs1} "
         f"launches {dk_counts}")
     del params
-    torch.cuda.empty_cache()
-    clock.done("5 train x1 dithered")
+    box5["losses"] = list(losses1)
+    p17["b"] = eager_rerun(dev, cfg1, gc_dk, box5, "b dithered x1")
+    del box5
+    clock.done("5 train x1 dithered (17b: eager rerun)")
 
     # -- 5b. 1 layer at chunk 16384: the passes in training ------------------
-    train_chunk = train_chunk_phase(dev)
-    clock.done("5b train x1 chunk 16384")
+    box5b = {}
+    with kept_train(box5b):
+        train_chunk = train_chunk_phase(dev)
+    box5b["losses"] = list(train_chunk["losses"])
+    p17["c"] = eager_rerun(dev, cfg1, G.GradCompConfig(bits=4,
+                                                      chunk=LARGE_CHUNK),
+                           box5b, "c chunk 16384 x1")
+    del box5b
+    clock.done("5b train x1 chunk 16384 (17c: eager rerun)")
 
     # -- 6. small input: the card vs the CPU's plain versions -----------------
     train_card_vs_cpu(dev, configs.get_reduced("yi-6b"), gc_ef, "small")
@@ -3988,8 +4359,20 @@ def main() -> int:
     clock.done("13c serve hymba x32")
     families = families_card_vs_cpu(dev)
     clock.done("13d reduced families, card vs CPU")
-    xlstm_train = xlstm_train_phase(dev)
-    clock.done("13e train xlstm x24")
+    box13 = {}
+    with kept_train(box13):
+        xlstm_train = xlstm_train_phase(dev)
+    box13["losses"] = list(xlstm_train["losses"])
+    xcfg = configs.get("xlstm-350m")
+    p17["g"] = {"eager_rerun": eager_rerun(dev, xcfg, G.GradCompConfig(bits=4),
+                                           box13, "g xlstm-350m",
+                                           drop_graphs=False),
+                "graph_arm_peak_mem_GB": xlstm_train["peak_mem_GB"]}
+    p17["g"]["turns"] = train_turns(dev, xcfg, box13, "g xlstm-350m",
+                                    XLSTM_TURNS, xlstm_train["leaves"])
+    del box13
+    torch.cuda.empty_cache()
+    clock.done("13e train xlstm x24 (17g: eager rerun, in turns)")
 
     # -- 14. checkpointing and observability (checkpoint/*, obs/*) ----------
     p14 = {"a": ckpt_fed_phase(dev)}
@@ -4071,6 +4454,9 @@ def main() -> int:
                            "card_vs_cpu": families,
                            "train_xlstm_x24": xlstm_train},
               "phase14": p14, "phase15": p15, "phase16": p16,
+              "phase17": {**p17, "d": "federation.b (17d_eager_s)",
+                          "e": "federation.c.17e",
+                          "f": "dist_one_rank (17f)"},
               "phase_s": clock.seconds}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

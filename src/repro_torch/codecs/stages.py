@@ -247,7 +247,9 @@ def _pow2(e: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _rung_runs(device: torch.device) -> torch.Tensor:
-    """_RUNG_RUNS indexed by the biased exponent k + 127 (1..127)."""
+    """_RUNG_RUNS indexed by the biased exponent k + 127 (1..127), copied
+    to the device once (a captured program's first call runs eagerly, so
+    its capture finds the copy made)."""
     return torch.tensor((0,) + _RUNG_RUNS, dtype=torch.int32, device=device)
 
 
@@ -261,9 +263,9 @@ def ratq_rung(rel: torch.Tensor, ladder: int) -> torch.Tensor:
     plus one when the mantissa is not zero), then the reference's
     departures from it near 2^k (`_RUNG_RUNS`). Identical on every device;
     needs h ≤ 127 (a normal floor)."""
-    floor = torch.tensor(2.0 ** (1 - ladder), dtype=torch.float32,
-                         device=rel.device)
-    bits = torch.maximum(rel.to(torch.float32), floor).view(torch.int32)
+    # the floor 2^(1−h) is exact in f32: a host scalar, no device copy
+    bits = torch.clamp_min(rel.to(torch.float32),
+                           2.0 ** (1 - ladder)).view(torch.int32)
     exact = (bits >> 23) - 127 + ((bits & 0x7FFFFF) != 0).to(torch.int32)
     near = torch.clamp((bits + (1 << 22)) >> 23, 1, 127)  # nearest 2^k, biased
     off = bits - (near << 23)                             # ulps from it

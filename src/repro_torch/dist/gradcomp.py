@@ -104,11 +104,22 @@ def _frame_signs(leaf_idx: int, cfg: GradCompConfig,
                          torch.device(device))
 
 
-def _stoch_key(leaf_idx: int, round_idx: int, cfg: GradCompConfig,
+@functools.lru_cache(maxsize=None)
+def _cached_stoch_base(seed: int, leaf_idx: int,
+                       device: torch.device) -> torch.Tensor:
+    base = rnd.fold_in(rnd.key(seed, device=device), 0x5eed)
+    return rnd.fold_in(base, leaf_idx)
+
+
+def _stoch_key(leaf_idx: int, round_idx, cfg: GradCompConfig,
                device) -> torch.Tensor:
-    """Key for the per-round stochastic parts (dither / keep-mask)."""
-    base = rnd.fold_in(rnd.key(cfg.seed, device=device), 0x5eed)
-    return rnd.fold_in(rnd.fold_in(base, leaf_idx), round_idx)
+    """Key for the per-round stochastic parts (dither / keep-mask).
+    `round_idx` is an int or a 0-d integer tensor (the train step's traced
+    step counter: one captured program serves every step), the same bits
+    either way. The leaf's key before the round is folded in is cached
+    per (seed, leaf, device), as the frame signs are."""
+    base = _cached_stoch_base(cfg.seed, int(leaf_idx), torch.device(device))
+    return rnd.fold_in(base, round_idx)
 
 
 # ---------------------------------------------------------------------------

@@ -610,8 +610,11 @@ def fold_mean(ys, n: int | None = None) -> torch.Tensor:
     a constant into that multiply)."""
     n = len(ys) if n is None else n
     acc = fold(ys)
+    # the reciprocal rounded to f32, then to acc's dtype, as a host value:
+    # a multiply by it rounds as by a 0-d tensor of that value, and copies
+    # nothing to the device (a captured program cannot hold a copy)
     recip = torch.tensor(1.0, dtype=torch.float32) / n
-    return acc * recip.to(dtype=acc.dtype, device=acc.device)
+    return acc * float(recip.to(acc.dtype))
 
 
 def tree_checksum(tree) -> torch.Tensor:

@@ -42,13 +42,28 @@ The serve step (`make_serve_step`) at model > 1 is tensor parallelism over
 of the params (`init_serve_state` draws them leaf by leaf) and its data
 index's slots of the caches, which are whole over "model".
 
+The train steps are the reference's jitted programs as captured programs
+(`repro_torch.graph.Program`: a CUDA graph per batch shape and bound
+state on the card) at one worker and over an NCCL group. They bind the
+params, the optimizer state and the EF by pointer (`STATE_ARGS`) and
+update all three IN PLACE, the optimizer's new moments and step count
+included (`_into`), so every replay returns the caller's tensors and no
+state-sized clone is made; the batch is copied into the graph's buffer.
+Unlike the reference's functional step, an `opt_state` passed in holds
+the new state afterwards. The step counter reaches the codec as its 0-d
+tensor (`_round_idx`), so one specialization serves every step, as in the
+reference. Over a gloo group, and on a HostMesh with model > 1, the step
+runs eagerly: gloo's collectives are host calls, which a graph cannot
+hold.
+
 Observability, as in the reference: the returned step callables carry
 host-side instrumentation. With a `repro_torch.obs` session active, each
 call runs under a "dist.step" (or "dist.step.zero1") span and emits
 per-step counters of the ANALYTIC per-worker payload bytes
 (`gradcomp.wire_bytes_tree` over the model's parameter shapes, computed
 once at factory time). Disabled, the wrapper costs one global load per
-call; the program registers with `obs.recompile` under the span's name.
+call; the program registers with `obs.recompile` under the span's name
+(an eager step counts no specialization).
 """
 from __future__ import annotations
 
@@ -72,6 +87,10 @@ from repro_torch.models import model as model_lib
 from repro_torch.obs import core as obs_lib
 from repro_torch.obs import recompile as recompile_lib
 from repro_torch.optimizer.optim import clip_by_global_norm, global_norm
+
+# a train step's arguments (params, opt_state, ef, batch): the state it
+# updates in place, bound by pointer when the step is captured
+STATE_ARGS = ("[0]", "[1]", "[2]")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,21 +123,53 @@ class StateSpec:
         return math.prod(self.local_shape(mesh)) * self.dtype.itemsize
 
 
-def _round_idx(opt_state) -> int:
+def _round_idx(opt_state):
     """Per-step salt for the codec's stochastic parts (dither / keep-mask):
-    the optimizer's step count before this step."""
+    the optimizer's step count before this step, its 0-d tensor itself
+    (never read on the host), as the reference passes its traced
+    `opt_state["step"]`: one captured program serves every step. 0 for a
+    state without a count."""
     if isinstance(opt_state, dict) and "step" in opt_state:
-        return int(opt_state["step"])
+        return opt_state["step"]
     return 0
 
 
 def _pmean(x: torch.Tensor, group) -> torch.Tensor:
-    """The reference's `pmean` over the workers (identity at one)."""
+    """The reference's `pmean` over the workers (identity at one); the
+    count is filled on the device, not copied from the host."""
     if group is None:
         return x
-    m = torch.tensor(float(sharding.num_workers(group)), dtype=x.dtype,
-                     device=x.device)
+    m = torch.full((), float(sharding.num_workers(group)), dtype=x.dtype,
+                   device=x.device)
     return sharding.all_reduce_sum(x, group).div_(m)
+
+
+def _into(state, new):
+    """`new`'s values written into `state`'s tensors, leaf by leaf;
+    returns `state`. The train steps update the optimizer state in place,
+    so a captured step's bound state is the caller's after every replay."""
+    for old, value in zip(tree_lib.leaves(state), tree_lib.leaves(new)):
+        old.copy_(value)
+    return state
+
+
+def _device_collectives(group) -> bool:
+    """Whether a train step over `group` (its data group) can be a
+    captured program: one worker, or an NCCL group, whose collectives are
+    queued on the stream. gloo's are host calls, which a CUDA graph cannot
+    hold, so a step over gloo runs eagerly."""
+    return group is None or (isinstance(group, dist.ProcessGroup)
+                             and dist.get_backend(group) == "nccl")
+
+
+def _program(step, name: str, captured: bool, gc: G.GradCompConfig,
+             payload_bytes):
+    """The train step as a `graph.Program` binding its state (params,
+    optimizer state, EF) by pointer where `captured`, else as it is; with
+    the obs wrapper around either."""
+    if captured:
+        step = graph_lib.Program(step, STATE_ARGS)
+    return _with_obs(step, name, gc, payload_bytes)
 
 
 def meta_params(cfg):
@@ -157,7 +208,7 @@ def _analytic_payload_bytes(cfg, gc: G.GradCompConfig, group):
 
 def _with_obs(fn, name: str, gc: G.GradCompConfig, payload_bytes):
     """Host-side instrumentation around a train step; call-transparent
-    (same signature, same outputs)."""
+    (same signature, same outputs). `stepper.program` is `fn`."""
     recompile_lib.register(name, fn, wire_bytes_per_call=payload_bytes)
 
     def stepper(params, opt_state, ef, batch):
@@ -174,6 +225,7 @@ def _with_obs(fn, name: str, gc: G.GradCompConfig, payload_bytes):
                             strategy=gc.strategy)
         return out
 
+    stepper.program = fn
     return stepper
 
 
@@ -212,7 +264,7 @@ def _grads(loss_of, leaves, spec, batch):
 # Consensus
 # ---------------------------------------------------------------------------
 def _consensus_leaves(g_leaves: list, e_leaves, gc: G.GradCompConfig,
-                      round_idx: int, group) -> list:
+                      round_idx, group) -> list:
     """The consensus of each gradient leaf, in flatten order. Consumes
     `g_leaves` (an entry is dropped once read, so a leaf's gradient is
     freed as its consensus is made) and writes each EF residual into its
@@ -259,7 +311,7 @@ def _consensus_leaves(g_leaves: list, e_leaves, gc: G.GradCompConfig,
     return outs
 
 
-def _consensus(grads, ef, gc: G.GradCompConfig, round_idx: int, group=None):
+def _consensus(grads, ef, gc: G.GradCompConfig, round_idx, group=None):
     """Returns (consensus grads, EF state): `ef` is the local EF tree (no
     worker axis), whose leaves take the new residuals in place."""
     g_leaves, spec = tree_lib.flatten(grads)
@@ -277,9 +329,12 @@ def make_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
     metrics). Every rank holds the whole params, optimizer state and its
     own (1, …) EF leaves; the batch's dim 0 is split over the workers.
 
-    The parameter and EF tensors are updated IN PLACE (p += u, the same
-    rounding as the reference's p + u; e ← the new residual), which saves
-    params-sized copies; the returned trees hold the same tensors.
+    The parameter, optimizer-state and EF tensors are updated IN PLACE
+    (p += u, the same rounding as the reference's p + u; e ← the new
+    residual; the new moments and step written into the old), which saves
+    params-sized copies; the returned trees hold the same tensors. At one
+    worker or over NCCL the step is a captured program (module
+    docstring).
 
     On a HostMesh with model > 1 the params and the optimizer's
     params-shaped state are this rank's slices (`init_train_state`): they
@@ -294,6 +349,7 @@ def make_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
     group = sharding.data_group(group)
 
     def step(params, opt_state, ef, batch):
+        state = opt_state
         if tp is not None:
             shards, params = params, tp.gather_tree(params)
             opt_state = _params_like(tp.gather_tree, opt_state, params)
@@ -308,7 +364,7 @@ def make_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
             grads, grad_norm = clip_by_global_norm(grads, clip_norm)
         else:
             grad_norm = global_norm(grads)
-        updates, opt_state = opt.update(grads, opt_state, params)
+        updates, new_state = opt.update(grads, opt_state, params)
         with torch.no_grad():
             for p, u in zip(leaves, tree_lib.leaves(updates)):
                 p.add_(u.to(p.dtype))
@@ -317,10 +373,12 @@ def make_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
                                 tree_lib.leaves(tp.take_tree(params))):
                     s.copy_(p)
                 params = shards
-                opt_state = _params_like(tp.take_tree, opt_state, shards)
-        return params, opt_state, ef, {"loss": loss, "grad_norm": grad_norm}
+                new_state = _params_like(tp.take_tree, new_state, shards)
+            _into(state, new_state)
+        return params, state, ef, {"loss": loss, "grad_norm": grad_norm}
 
-    return _with_obs(step, "dist.step", gc, payload_bytes)
+    return _program(step, "dist.step", tp is None and _device_collectives(
+        group), gc, payload_bytes)
 
 
 def _specs(tree, lead=None):
@@ -398,9 +456,12 @@ def make_zero_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
     their optimizer state and its (1, padded_chunks, chunk) EF; the params
     are all-gathered for the forward pass (`gather_dtype` optionally casts
     them for that gather; None keeps the step bitwise `allgather_packed`).
-    The owned params and the EF are updated in place. On a HostMesh the
-    step runs over the rank's data group, its state whole over "model"."""
+    The owned params, the optimizer state and the EF are updated in place;
+    captured as `make_train_step`'s step is. On a HostMesh the step runs
+    over the rank's data group, its state whole over "model"."""
+    captured = sharding.model_axis_size(group) == 1
     group = sharding.data_group(group)
+    captured = captured and _device_collectives(group)
     m = sharding.num_workers(group)
     r = sharding.worker_index(group)
     chunk = gc.chunk
@@ -453,15 +514,17 @@ def make_zero_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
             scale = torch.clamp(clip_norm / torch.clamp_min(grad_norm, 1e-12),
                                 max=1.0)
             owned_grads = tree_lib.map(lambda x: x * scale, owned_grads)
-        updates, opt_state = opt.update(owned_grads, opt_state, owned_params)
+        updates, new_state = opt.update(owned_grads, opt_state,
+                                        owned_params)
         with torch.no_grad():
             for p, u in zip(owned_leaves, tree_lib.leaves(updates)):
                 p.add_(u.to(p.dtype))
+            _into(opt_state, new_state)
         return owned_params, opt_state, ef, {"loss": loss,
                                              "grad_norm": grad_norm}
 
-    return _with_obs(step, "dist.step.zero1", gc,
-                     _analytic_payload_bytes(cfg, gc, group))
+    return _program(step, "dist.step.zero1", captured, gc,
+                    _analytic_payload_bytes(cfg, gc, group))
 
 
 def _owned_templates(cfg, gc: G.GradCompConfig, m: int):

@@ -22,6 +22,13 @@ mini-batch draws are each one hash for the cohort), then every lane's
 compensated delta is encoded in one kernel launch per leaf, each lane under
 its own key (`codecs.base.encode_ef_lanes`). Lane l's wire and state are
 bitwise the scalar round's on client l.
+
+Both rounds are the reference's jitted programs as captured programs
+(`repro_torch.graph.Program`: a CUDA graph per specialization on the
+card). Their arguments are copied into the graph's buffers and their
+outputs cloned, as the reference's are values; the round index is traced
+(a 0-d tensor), so a new round is no new specialization, and a cohort
+size is one, as in the reference.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import graph as graph_lib
 from repro_torch import random as rnd
 from repro_torch import tree as tree_lib
 from repro_torch.codecs import base as codec_base
@@ -175,8 +183,10 @@ def _cohort_body(loss_fn: Callable, codec, cfg: ClientConfig, meta):
 def make_client_round(loss_fn: Callable, codec, cfg: ClientConfig,
                       params_template) -> Callable:
     """(global_params, data, state, round_idx) → (wire, new state), with the
-    codec's static meta taken once from `params_template`."""
-    return _round_body(loss_fn, codec, cfg, codec.meta(params_template))
+    codec's static meta taken once from `params_template`: a captured
+    program (module docstring)."""
+    return graph_lib.Program(_round_body(loss_fn, codec, cfg,
+                                         codec.meta(params_template)))
 
 
 def make_cohort_round(loss_fn: Callable, codec, cfg: ClientConfig,
@@ -184,8 +194,10 @@ def make_cohort_round(loss_fn: Callable, codec, cfg: ClientConfig,
     """The client round of a cohort sharing (codec, cfg): (global_params,
     stacked data, stacked states, round_idx) → (stacked wires, stacked
     states). Each lane draws under its own key; the per-leaf frames are
-    shared, so the server decodes every lane with the same frames."""
-    return _cohort_body(loss_fn, codec, cfg, codec.meta(params_template))
+    shared, so the server decodes every lane with the same frames. A
+    captured program (module docstring)."""
+    return graph_lib.Program(_cohort_body(loss_fn, codec, cfg,
+                                          codec.meta(params_template)))
 
 
 # ---------------------------------------------------------------------------

@@ -102,12 +102,13 @@ def make_mesh_cohort_round(loss_fn, codec, client_cfg, params_template,
 
     The stacked data and states carry every padded lane (a multiple of the
     group's size); the results carry the rank's block of them. The rank
-    runs `clients.make_cohort_round` and decodes its lanes' payloads
+    runs the cohort round's body and decodes its lanes' payloads
     (`codecs.base.decode_lanes`): encode → decode runs where the lane
-    lives, and nothing lane-sized crosses ranks before the reduce."""
+    lives, and nothing lane-sized crosses ranks before the reduce. It
+    runs eagerly, as the mesh fold does: its ranks meet over gloo on one
+    card, whose collectives a CUDA graph cannot hold."""
     meta = codec.meta(params_template)
-    body = clients_lib.make_cohort_round(loss_fn, codec, client_cfg,
-                                         params_template)
+    body = clients_lib._cohort_body(loss_fn, codec, client_cfg, meta)
 
     def local_lanes(params, data, state, round_idx):
         own = _block(state.key.shape[0], group)

@@ -38,8 +38,11 @@ active, `run_round` emits host-side spans for the realloc / client-compute
 from the round record (realized vs analytic wire bytes, participant /
 straggler / cohort counts, lane counts); every round and decode program
 registers with `obs.recompile` under the reference's name
-("fed.round.cohort", …). Enabling obs leaves params, EF states and the
-ledger bitwise unchanged. `run(..., obs=session)` activates a session for
+("fed.round.cohort", …). The client rounds, the decodes and the
+aggregates are captured programs (`repro_torch.graph.Program`, CUDA
+graphs on the card, with the reference's specializations); the mesh
+backend's round and fold run eagerly (gloo). Enabling obs leaves params,
+EF states and the ledger bitwise unchanged. `run(..., obs=session)` activates a session for
 the run and emits a run-level summary event.
 
 Differences from the reference: per-lane delta norms are computed on the
@@ -56,6 +59,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import graph as graph_lib
 from repro_torch import random as rnd
 from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
@@ -285,21 +289,24 @@ class Federation:
 
     def _cohort_decode(self, key, i0: int):
         """The server's decode of a cohort's stacked wires (one decode
-        launch per leaf for all lanes), built once per cohort key."""
+        launch per leaf for all lanes), a captured program built once per
+        cohort key; the lane count is the wires' leading axis."""
         fn = self._cohort_decode_fns.get(key)
         if fn is None:
             codec, meta = self.codecs[i0], self.metas[i0]
 
-            def decode_cohort(wires, lanes):
+            def decode_cohort(wires):
+                lanes = tree_lib.leaves(wires)[0].shape[0]
                 return codec_base.decode_lanes(codec, wires, meta, lanes)
 
-            fn = recompile_lib.register("fed.decode.cohort", decode_cohort)
+            fn = recompile_lib.register("fed.decode.cohort",
+                                        graph_lib.Program(decode_cohort))
             self._cohort_decode_fns[key] = fn
         return fn
 
     def _scalar_decode(self, i: int):
         """A singleton's decode, shaped like a 1-lane cohort (leading lane
-        axis), built once per codec spec."""
+        axis), a captured program built once per codec spec."""
         k = self._spec_key(i)
         fn = self._decode_fns.get(k)
         if fn is None:
@@ -309,7 +316,8 @@ class Federation:
                 return tree_lib.map(lambda x: x[None],
                                     codec.decode(wire, meta))
 
-            fn = recompile_lib.register("fed.decode.scalar", decode_one)
+            fn = recompile_lib.register("fed.decode.scalar",
+                                        graph_lib.Program(decode_one))
             self._decode_fns[k] = fn
         return fn
 
@@ -400,11 +408,10 @@ class Federation:
             wires, new_states = fn(self.server.params, data, state,
                                    round_idx)
         dfn = self._cohort_decode(key, i0)
-        obs_lib.observe_program_call("fed.decode.cohort", dfn,
-                                     (wires, len(members)),
+        obs_lib.observe_program_call("fed.decode.cohort", dfn, (wires,),
                                      span="fed.decode")
         with obs_lib.span("fed.decode", lanes=len(members), path="vmap"):
-            decoded = dfn(wires, len(members))
+            decoded = dfn(wires)
             norms = self._norms(decoded)
         return wires, new_states, decoded, norms
 

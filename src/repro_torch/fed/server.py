@@ -28,10 +28,14 @@ cannot drift apart. fedmem's mean over the slots is a left-to-right fold
 too (the reference's `jnp.mean`), so the card and the CPU agree on it. The m-independent tail (the η_s step, fedopt's
 optimizer update) is the same code in both.
 
-The stacked layout's reductions are programs registered with
-`repro_torch.obs.recompile` under the reference's names
-("fed.aggregate.mean", "fed.aggregate.memory"), and each call is captured
-by an active obs session for the "fed.round.aggregate" span.
+The stacked layout's reductions are the reference's jitted programs as
+captured programs (`repro_torch.graph.Program`: a CUDA graph per
+participant count on the card), registered with `repro_torch.obs.recompile`
+under the reference's names ("fed.aggregate.mean", "fed.aggregate.memory"),
+and each call is captured by an active obs session for the
+"fed.round.aggregate" span. The weight checks and the normalization run
+on the host before them; a program receives the normalized weights and
+the participants' slot indices as tensors.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from typing import Any, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import graph as graph_lib
 from repro_torch import tree as tree_lib
 from repro_torch.dist.sharding import fold, fold_mean
 from repro_torch.obs import core as obs_lib
@@ -179,27 +184,35 @@ def _fedopt_tail(state: ServerState, cfg: ServerConfig, mean) -> ServerState:
                        opt_state, state.memory)
 
 
-def _memory_step(memory, stacked, participant_ids, slot_weights):
-    """fedmem: scatter the participants' deltas into their slots, then
-    reduce ALL slots to the step direction, folded left to right (a
-    library reduction sums in another order on the card than on the CPU,
-    and fedmem's trajectory amplifies the last bit). The same ops in both
-    layouts."""
+def _memory_inputs(memory, participant_ids, slot_weights) -> tuple:
+    """The participants' slot indices (int64) and the normalized slot
+    weights (None: the plain mean) as tensors on the memory's device, the
+    weights checked first (host work before the program)."""
     dev = _device(memory)
     idx = torch.as_tensor(list(participant_ids), dtype=torch.int64,
                           device=dev)
+    if slot_weights is None:
+        return idx, None
+    _check_weights(slot_weights, "slot_weights")
+    return idx, _normalized(slot_weights, dev)
 
+
+def _memory_step(memory, stacked, idx, sw):
+    """fedmem: scatter the participants' deltas into their slots `idx`,
+    then reduce ALL slots to the step direction, folded left to right (a
+    library reduction sums in another order on the card than on the CPU,
+    and fedmem's trajectory amplifies the last bit), weighted by the
+    normalized slot weights `sw` (None: the mean). The same ops in both
+    layouts."""
     def scatter(m, d):
         m = m.clone()
         m[idx] = d.to(torch.float32)
         return m
 
     memory = tree_lib.map(scatter, memory, stacked)
-    if slot_weights is None:
+    if sw is None:
         direction = tree_lib.map(fold_mean, memory)
     else:
-        _check_weights(slot_weights, "slot_weights")
-        sw = _normalized(slot_weights, dev)
         direction = tree_lib.map(
             lambda m: fold(_lane_weights(sw, m) * m), memory)
     return memory, direction
@@ -224,8 +237,8 @@ def aggregate(state: ServerState, cfg: ServerConfig, deltas: Sequence,
         raise ValueError("fedmem aggregation needs participant_ids")
     stacked = tree_lib.map(
         lambda *xs: torch.stack([x.to(torch.float32) for x in xs]), *deltas)
-    memory, direction = _memory_step(state.memory, stacked, participant_ids,
-                                     slot_weights)
+    memory, direction = _memory_step(state.memory, stacked, *_memory_inputs(
+        state.memory, participant_ids, slot_weights))
     return ServerState(_apply_delta(state.params, direction, cfg.server_lr),
                        state.opt_state, memory)
 
@@ -264,19 +277,22 @@ def _pairwise_weighted_sum(stacked, w):
 @functools.lru_cache(maxsize=None)
 def _stacked_mean_fn(sum_mode: str):
     """`(stacked, w normalized) → Σ w_l · lane_l`, the fedavg/fedopt
-    reduction of `sum_mode`, registered once per mode."""
+    reduction of `sum_mode`, a captured program registered once per
+    mode."""
     return recompile_lib.register(
-        "fed.aggregate.mean", _sequential_weighted_sum
-        if sum_mode == "sequential" else _pairwise_weighted_sum,
-        span="fed.round.aggregate")
+        "fed.aggregate.mean", graph_lib.Program(
+            _sequential_weighted_sum if sum_mode == "sequential"
+            else _pairwise_weighted_sum), span="fed.round.aggregate")
 
 
 @functools.lru_cache(maxsize=None)
 def _stacked_memory_fn(has_slot_weights: bool):
-    """fedmem's slot scatter and reduction over ALL slots, registered once
-    per slot weighting, as the reference compiles it."""
-    return recompile_lib.register("fed.aggregate.memory", _memory_step,
-                                  span="fed.round.aggregate")
+    """fedmem's slot scatter and reduction over ALL slots, `(memory,
+    stacked, idx, sw) → (memory, direction)`, a captured program
+    registered once per slot weighting, as the reference compiles it."""
+    return recompile_lib.register(
+        "fed.aggregate.memory", graph_lib.Program(_memory_step),
+        span="fed.round.aggregate")
 
 
 def _stacked_mean(stacked, weights, sum_mode: str):
@@ -312,7 +328,8 @@ def aggregate_stacked(state: ServerState, cfg: ServerConfig, stacked,
     if participant_ids is None:
         raise ValueError("fedmem aggregation needs participant_ids")
     mem_fn = _stacked_memory_fn(slot_weights is not None)
-    args = (state.memory, stacked, list(participant_ids), slot_weights)
+    args = (state.memory, stacked) + _memory_inputs(
+        state.memory, participant_ids, slot_weights)
     obs_lib.observe_program_call("fed.aggregate.memory", mem_fn, args,
                                  span="fed.round.aggregate")
     memory, direction = mem_fn(*args)

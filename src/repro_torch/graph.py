@@ -1,7 +1,9 @@
 """Captured programs: the port's counterpart of `jax.jit` for the serve
-programs, as CUDA graphs on the card.
+programs, the train steps (`dist.step`, `dist.step.zero1`) and the
+federation's client rounds, decodes and aggregates, as CUDA graphs on the
+card.
 
-The reference compiles each of its serve programs once per specialization
+The reference compiles each of these programs once per specialization
 (its static arguments, and the shape and dtype of every array leaf) and
 reuses the compiled program. A `Program` does the same with
 `torch.cuda.CUDAGraph`:
@@ -11,18 +13,24 @@ reuses the compiled program. A `Program` does the same with
     run IS the call (its result is returned, and a state it updates in
     place is updated once), and it warms up what a capture must not do for
     the first time: loading the kernels' library, setting their
-    shared-memory attributes, making cuBLAS's handle and workspace. Then
-    the function is captured into a graph over the same buffers, which
-    records its launches without executing them;
+    shared-memory attributes, making cuBLAS's handle and workspace, an
+    NCCL communicator. Before that run and after it the allocator's
+    cached blocks are freed (`torch.cuda.empty_cache`: it caches per
+    stream, and the capture allocates from a private pool, which cannot
+    take them), so a first call's peak is an eager step's, not twice its
+    temporaries; then the function is captured into a graph over the
+    same buffers, which records its launches without executing them;
   * a later call copies its inputs into the static buffers and replays
     the graph: one launch in place of thousands of dispatches.
 
 A graph bakes in every pointer it reads or writes. The arguments named by
 `bound` (keystr prefixes of the argument tuple, e.g. `("[0]",
-"[1].caches")` for the parameters and a state's in-place caches) are
-bound by pointer: a graph is captured per (specialization, bound
-pointers), so two engines over one model get graphs of their own and no
-graph writes through another engine's caches. A graph dies with the
+"[1].caches")` for the parameters and a state's in-place caches, or
+`("[0]", "[1]", "[2]")` for a train step's params, optimizer state and
+EF, which it updates in place) are bound by pointer: a graph is captured
+per (specialization, bound pointers), so two engines over one model get
+graphs of their own and no graph writes through another engine's
+caches. A graph dies with the
 tensors it is bound to. Every other tensor argument is copied into a
 static buffer at each call. A Python int, float or bool argument is
 traced, as `jax.jit` traces it: the function receives it as a 0-d tensor
@@ -30,9 +38,9 @@ on the program's device, so a new value (a slot index) is no new
 specialization.
 
 Outputs keep the reference's value semantics: an output that is a bound
-argument (an in-place cache) comes back as the caller's tensor; every
-other output is cloned out of the graph's buffers, so no later replay can
-overwrite what a caller holds.
+argument (an in-place cache or train state) comes back as the caller's
+tensor; every other output is cloned out of the graph's buffers, so no
+later replay can overwrite what a caller holds.
 
 `_cache_size()` counts specializations, not graphs, as the reference's
 compiled programs do; `repro_torch.obs.recompile` reads it. The kernel
@@ -239,9 +247,16 @@ class Program:
             return self.fn(*tree_lib.unflatten(spec, full))
         current = torch.cuda.current_stream(device)
         side = _side_stream(device)
+        # the allocator caches freed blocks per stream and pool: the side
+        # stream's run cannot draw on the current stream's cache, nor the
+        # capture's private pool on either. Without handing them back
+        # first, a train step's first call would hold its temporaries
+        # twice (three times after an eager step)
+        torch.cuda.empty_cache()
         side.wait_stream(current)
         with torch.cuda.stream(side):
             out = self.fn(*tree_lib.unflatten(spec, full))
+        torch.cuda.empty_cache()
         self._capture(entry, spec, full, bound, side)
         current.wait_stream(side)
         return out

@@ -29,8 +29,9 @@ def _check_bits(bits: int) -> None:
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d, correctly rounded (d as a tensor on x's device, never a
-    host scalar that CUDA would turn into a reciprocal multiply)."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    host scalar that CUDA would turn into a reciprocal multiply; filled
+    there, not copied from the host, so a captured program can hold it)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def to_int32(words: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,13 @@ rank calls `train(..., group=group)` with the same arguments
 `group` may be a ("data", "model") mesh (`make_host_group(data, model)`):
 the workers are its data ranks, and at model > 1 a rank holds its slices
 of the params and optimizer state (`dist.step.make_train_step`).
+
+The step is the captured "dist.step" program at one worker and over NCCL
+(`repro_torch.graph`: on the card its first call captures a CUDA graph,
+every later step of the batch shape replays it), updating the params,
+optimizer state and EF in place; `with repro_torch.graph.eager():` runs
+it eagerly. A state restored from a checkpoint is new tensors, so the
+first step after a restore captures again.
 """
 from __future__ import annotations
 

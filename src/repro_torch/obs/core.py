@@ -352,7 +352,11 @@ def observe_program_call(name: str, fn, args, kwargs=None, *,
                          static=None, span: Optional[str] = None,
                          wire_bytes=None) -> None:
     """Cost-model capture hook for instrumented call sites: record that the
-    named program is about to run with these arguments. Disabled sessions
+    named program is about to run with these arguments, the arguments the
+    program itself is called with (a `repro_torch.graph.Program` keys its
+    specializations on the same leaves: tensors by shape and dtype, Python
+    scalars by type), and whether it is such a captured program (its
+    cost record says so). Disabled sessions
     (and sessions with `costs=False`) cost one global load + early return;
     active capture is one dict probe per call (no execution)."""
     o = _ACTIVE

@@ -17,7 +17,9 @@ program; eager torch has none, so here:
     argument shapes: the counts of `repro_torch.kernels.cost`, which
     `chip_smoke.py`'s bounds divide too;
   * every other program degrades to `available: False` with its reason,
-    as the reference degrades on a backend without cost analysis.
+    as the reference degrades on a backend without cost analysis: an
+    eager callable, or a captured program (`repro_torch.graph.Program`,
+    which exposes `_cache_size`), whose graph records eager torch ops.
     `compile_ok=True` has no compiler to ask and degrades the same way.
 """
 from __future__ import annotations
@@ -43,6 +45,8 @@ BACKEND_PEAKS = {
     "cpu": (1.0e11, 5.0e10),   # one AVX-ish core complex + DDR stream
 }
 EAGER_REASON = "eager torch program: no compiler cost analysis"
+GRAPH_REASON = ("captured program (a CUDA graph of eager torch ops): no "
+                "compiler cost analysis")
 
 
 def peaks(backend: Optional[str] = None,
@@ -143,6 +147,7 @@ def record_call(store: dict, name: str, fn, args, kwargs=None, *,
         store[sig] = rec = {
             "name": name, "args": a_args, "kwargs": a_kwargs,
             "static": static, "span": span,
+            "captured": getattr(fn, "_cache_size", None) is not None,
             "calls": 0, "wire_bytes": 0.0, "cost": None,
         }
     rec["calls"] += 1
@@ -178,7 +183,7 @@ def _extract(rec: dict) -> dict:
         out["argument_bytes"] = _leaf_bytes((rec["args"], rec["kwargs"]))
         op = _kernel_op(rec["name"])
         if op is None:
-            out["reason"] = EAGER_REASON
+            out["reason"] = GRAPH_REASON if rec["captured"] else EAGER_REASON
         else:
             nbytes, flops = cost.program_cost(op, rec["args"],
                                               rec["kwargs"], rec["static"])

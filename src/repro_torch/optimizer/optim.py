@@ -27,7 +27,9 @@ ScalarOrSchedule = Union[float, Schedule]
 
 
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    """v as a 0-d f32 tensor on like's device, filled there: no copy from
+    the host, which a captured train step cannot hold."""
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 def _lr_at(lr: ScalarOrSchedule, step: torch.Tensor) -> torch.Tensor:

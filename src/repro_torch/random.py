@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -83,9 +84,10 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & _M32
 
 
-def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
+def threefry2x32(k1, k2, x1, x2):
     """The Threefry-2x32 hash (20 rounds) of counter pairs (x1, x2) under
-    the key (k1, k2); all values uint32 held in int64."""
+    the key (k1, k2); all values uint32 held in int64 tensors (a counter
+    may be a Python int, broadcast over the key's words)."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x1 = (x1 + ks[0]) & _M32
     x2 = (x2 + ks[1]) & _M32
@@ -99,10 +101,12 @@ def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
 
 
 def key(seed: int, device=None) -> torch.Tensor:
-    """`jax.random.key(seed)` for a 32-bit seed: the pair (0, seed)."""
+    """`jax.random.key(seed)` for a 32-bit seed: the pair (0, seed), made
+    on the device (no copy from the host, which a captured program
+    cannot hold)."""
     if not -2 ** 31 <= seed < 2 ** 32:
         raise ValueError(f"seed must fit 32 bits, got {seed}")
-    return torch.tensor([0, seed & _M32], dtype=torch.int64, device=device)
+    return torch.arange(2, dtype=torch.int64, device=device) * (seed & _M32)
 
 
 def _words(k: torch.Tensor):
@@ -112,11 +116,16 @@ def _words(k: torch.Tensor):
     return k[..., 0, None], k[..., 1, None]
 
 
-def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
-    """`jax.random.fold_in`: hash the counter pair (0, data) under k."""
+def fold_in(k: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in`: hash the counter pair (0, data) under k.
+    `data` is an int or a 0-d integer tensor (a traced step counter), its
+    low 32 bits hashed either way, so both give the same bits."""
     k1, k2 = _words(k)
-    x = torch.tensor([0, int(data) & _M32], dtype=torch.int64, device=k.device)
-    y1, y2 = threefry2x32(k1, k2, x[:1], x[1:])
+    if isinstance(data, torch.Tensor):
+        lo = data.to(device=k.device, dtype=torch.int64) & _M32
+    else:
+        lo = int(data) & _M32
+    y1, y2 = threefry2x32(k1, k2, 0, lo)
     return torch.cat([y1, y2], dim=-1)
 
 
@@ -190,9 +199,12 @@ def uniform(k: torch.Tensor, shape, minval: float = 0.0,
     bits = random_bits32(k, shape)
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # the bounds and their f32 difference as exact f32 values: a host
+    # scalar multiplies and adds in f32 as a 0-d f32 tensor does, and is
+    # no copy to the device
+    lo = float(np.float32(minval))
+    width = float(np.float32(maxval) - np.float32(minval))
+    return torch.clamp_min(floats * width + lo, lo)
 
 
 # XLA's f32 erf_inv (Giles' approximation): polynomial coefficients in w

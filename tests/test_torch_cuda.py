@@ -14,7 +14,10 @@ decode attention within rtol = atol = 2e-4, the bound the JAX package
 holds its Pallas kernel to (exponentials and sums run in another
 order). The codecs' paths (RATQ's rung, `ops.rotate`, lane-stacked
 encode / encode_ef / decode, sparsify-then-embed's ties) are held bitwise
-card against CPU or against the per-lane calls. Two gloo ranks sharing the
+card against CPU or against the per-lane calls. The captured programs
+(`repro_torch.graph`: the serve programs, the train steps, the
+federation's programs; `-k graphs`, `-k train_graphs`) are held bitwise
+against `graph.eager()`. Two gloo ranks sharing the
 card (this file run as a script is one rank) hold ZeRO-1 against the
 all-gather consensus and the mesh federation against the vmap backend,
 bitwise."""
@@ -385,6 +388,113 @@ def test_cuda_graphs_match_the_eager_arm(cuda, arch):
                            x.view(torch.uint8)), name
     assert torch.equal(got[2], want[2])
     assert got[3] == want[3] and got[3]["quant_decode_attention"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Captured training programs (repro_torch.graph): CUDA graphs against eager
+# ---------------------------------------------------------------------------
+TRAIN_KINDS = {"allgather_ef": {},
+               "dithered_keep": {"dithered": True, "error_feedback": False,
+                                 "keep_fraction": 0.5},
+               "zero1": {"strategy": "alltoall_zero1"}}
+
+
+def _bits_equal(a, b) -> bool:
+    from repro_torch import tree as tree_lib
+    la, lb = tree_lib.leaves(a), tree_lib.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.reshape(-1).view(torch.uint8),
+                        y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def _train_programs_run(kind: str, dev):
+    """3 steps of the reduced yi-6b's train step (AdamW, clip 1) from the
+    seeded state, on tokens drawn on the CPU: ((state, metrics), the
+    kernel launches, the step program's specializations)."""
+    from repro_torch import configs
+    from repro_torch.dist import gradcomp as G
+    from repro_torch.dist import step as S
+    from repro_torch.optimizer import optim
+
+    cfg = configs.get_reduced("yi-6b")
+    gc = G.GradCompConfig(**TRAIN_KINDS[kind])
+    opt = optim.adamw(optim.warmup_cosine(3e-4, 1, 10), weight_decay=0.1)
+    make, init = ((S.make_zero_train_step, S.init_zero_state)
+                  if kind == "zero1" else
+                  (S.make_train_step, S.init_train_state))
+    step = make(cfg, opt, gc, clip_norm=1.0)
+    state = init(cfg, opt, gc, device=dev)
+    g = torch.Generator().manual_seed(2)
+    before = ops.launch_counts()
+    metrics = []
+    for _ in range(3):
+        toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=g,
+                             dtype=torch.int32).to(dev)
+        *state, m = step(*state, {"tokens": toks})
+        metrics.append(m)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    return ((state, metrics), {k: after[k] - before[k] for k in after},
+            step.program._cache_size())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(TRAIN_KINDS))
+def test_cuda_train_graphs_match_the_eager_arm(cuda, kind):
+    """The captured train step (one specialization for the 3 steps) gives
+    the eager arm's losses, grad norms, params, optimizer state and EF
+    bitwise, with the same kernel launches (one per leaf and kernel a
+    step, replays counted)."""
+    from repro_torch import graph
+    got, launches, specs = _train_programs_run(kind, cuda)
+    with graph.eager():
+        want, launches_eager, _ = _train_programs_run(kind, cuda)
+    assert specs == 1
+    assert _bits_equal(got, want)
+    assert launches == launches_eager and max(launches.values()) > 0
+
+
+def _fed_programs_run(dev):
+    """A 6-client federation (two cohorts and singletons, fedmem, 50%
+    participation, local mini-batches) for 4 rounds: (history, server,
+    client states, launches)."""
+    from repro_torch import codecs, fed
+
+    g = torch.Generator().manual_seed(3)
+    shards = [{"a": torch.randn(32, 16, generator=g),
+               "b": torch.randn(32, generator=g)} for _ in range(6)]
+
+    def loss(p, batch):
+        r = batch["a"] @ p["x"] - batch["b"]
+        return 0.5 * torch.mean(r * r)
+
+    f = fed.Federation(
+        loss, {"x": torch.zeros(16)}, shards,
+        [codecs.make("ndsc", r, chunk=32) for r in (1, 1, 1, 2, 2, 4)],
+        fed.ClientConfig(lr=0.1, local_steps=2, batch_size=8),
+        fed.ServerConfig(aggregator="fedmem", server_lr=0.5), seed=0,
+        device=dev)
+    before = ops.launch_counts()
+    hist = f.run(fed.FedConfig(num_rounds=4, participation=0.5, seed=0))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    return hist, f.server, f.states, {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.cuda
+def test_cuda_train_graphs_federation_matches_the_eager_arm(cuda):
+    """The federation's captured programs (client rounds, decodes, the
+    fedmem aggregate) give the eager arm's ledger, participants, params
+    and client states bitwise, with the same kernel launches."""
+    from repro_torch import graph
+    hist, server, states, launches = _fed_programs_run(cuda)
+    with graph.eager():
+        hist_e, server_e, states_e, launches_e = _fed_programs_run(cuda)
+    assert hist == hist_e
+    assert _bits_equal(server, server_e) and _bits_equal(states, states_e)
+    assert launches == launches_e and launches["encode_ef"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -532,6 +532,8 @@ def test_sentinel_verdicts_equal_the_reference(case):
 # ---------------------------------------------------------------------------
 # workloads under both packages
 # ---------------------------------------------------------------------------
+# the reference's extra specialization on a train step's first call
+FIRST_CALL_PLACEMENT = {"dist.step": 1}
 PUBLIC_OPS = ("fwht", "quantize_pack", "unpack_dequant", "encode",
               "encode_ef", "quant_decode_attention")
 INT_COUNTERS = ("fed.rounds", "fed.wire_bytes", "fed.analytic_bytes",
@@ -755,16 +757,18 @@ def test_kernel_events_equal_the_reference_and_count_every_call(runs,
 def test_registered_programs_equal_the_reference(runs, workload):
     ours, theirs = runs[workload]["on"][2], runs[workload]["ref"][2]
     assert ours and ours == theirs
-    # the serve programs are captured (repro_torch.graph) and count the
-    # reference's specializations for the same workload; the fed and dist
-    # programs still run eagerly (ROADMAP queue 1) and count none
+    # the serve, fed and dist programs are captured (repro_torch.graph)
+    # and count the reference's specializations for the same workload,
+    # but for the train step's first call, which the reference compiles
+    # once more: init_train_state spells the state's placement
+    # P(None, ...), the step returns it as P() (ROADMAP §3)
     session = runs[workload]["on"][3]
     got = session.summary()["recompiles"]
     want = runs[workload]["ref"][3].summary()["recompiles"]
     assert {name: got.get(name, 0) for name in ours} == {
-        name: want.get(name, 0) if name.startswith("serve.") else 0
+        name: want.get(name, 0) - FIRST_CALL_PLACEMENT.get(name, 0)
         for name in ours}
-    assert (workload == "serve") == any(got.get(name) for name in ours)
+    assert any(got.get(name) for name in ours)
     programs = session.costs()["programs"]
     for name, prog in programs.items():
         available = {s["available"] for s in prog["specializations"]}
