@@ -100,8 +100,17 @@ prints its seconds):
      NDSC-Haar, NDSC-Hadamard at N 32), x_avg within 1e-4 relative; d. the
      codec error (fig1a: n 1000, 20 trials, R 1-6, NDE-Hadamard N 1024 and
      NDE-Haar) within 1e-4, Hadamard payloads bitwise; e. embedding times
-     at n 1024, 4096, 8192 (fig1c) and one DGD-DEF step's host µs; f. the
-     FWHT launches (> 0 in a, c, d) and seconds of each sub-phase;
+     at n 1024, 4096, 8192 (fig1c; DE-Haar captured and inside
+     graph.eager()) and one DGD-DEF step's host µs (captured and eager);
+     f. the FWHT launches (960, 0, 9000, 10 in a-d: two a step of the
+     Hadamard runs, counted through the step graphs' replays) and seconds
+     of each sub-phase. Each algorithm's step is a captured program
+     (repro_torch.graph; on the card a CUDA graph replayed step after
+     step): on the card every run of a-c is followed at once by the same
+     run inside graph.eager(), which must give x_final, x_avg and
+     dist_history bitwise (its launches are not counted in f), and the
+     steps/s of both arms (in turns) and of the CPU's run are printed per
+     family, with the step graphs' capture seconds;
  10. codecs and federation (repro_torch.codecs, repro_torch.fed): a. each
      wire codec (ndsc R 2 and R 0.5 with exact keep, ndsc's encode_ef,
      ratq R 2, sparsify_then_embed top-k and rand-k at R 1, 4 bits, dsc
@@ -232,7 +241,11 @@ prints its seconds):
      ms, ops), then the model's traffic three times on that engine
      (graph, eager, graph: TTFT by admission kind with warm graphs), each
      program's capture seconds and the graph pool's bytes; d. is 14c
-     (obs under graphs);
+     (obs under graphs); e. the serve launcher (launch.serve.serve) at
+     yi-6b full width and all 32 layers (f32 cache, batch 4, prompt 32,
+     16 tokens), its prefill a captured program, then again inside
+     graph.eager() from the same seed: tokens bitwise, prefill and decode
+     seconds of both arms and the prefill's capture seconds;
  16. serving across workers (the "model" axis: dist.step.make_serve_step
      on a launch.mesh.make_host_group mesh, tensor parallelism over
      gloo ranks sharing the card), after phase 15; the one-worker runs
@@ -1239,6 +1252,13 @@ CODEC_N, CODEC_TRIALS, CODEC_BUDGETS = 1000, 20, (1.0, 2.0, 3.0, 4.0, 6.0)
 EMBED_TIME_N = (1024, 4096, 8192)
 ALG_TOL = {"alg1_rate": 1e-3, "alg2_loss_rel": 1e-3, "alg3_xavg_rel": 1e-4,
            "codec_err_abs": 1e-4}
+# FWHT launches per sub-phase: an encode and a decode a step of each
+# Hadamard run (NDE-Hadamard in a, NDSC-Hadamard in c), and a trial batch
+# per budget in d
+FWHT_PER_SUBPHASE = {"a_alg1": 2 * len(ALG1_BUDGETS) * ALG1_STEPS,
+                     "b_alg2": 0,
+                     "c_alg3": 2 * len(ALG3_BUDGETS) * ALG3_STEPS,
+                     "d_codec_error": 2 * len(CODEC_BUDGETS)}
 
 
 def paper_problems(seed: int = 0) -> dict:
@@ -1286,19 +1306,25 @@ def _to(tree, dev):
     return out
 
 
-def run_algorithms(P: dict, dev) -> dict:
+def run_algorithms(P: dict, dev, rerun: bool = False) -> dict:
     """Algs. 1-3 and the codec error of the §5 protocols on dev, the port's
     code as a user calls it. Returns the reported quantities, the FWHT
     launches and the seconds of each sub-phase, and each algorithm's
-    (seconds, steps), each run timed between two synchronizations."""
+    (seconds, steps), each run timed between two synchronizations, with
+    its step programs' capture seconds. With `rerun`, each run of a-c is
+    followed by the same run inside graph.eager(): bitwise, its (seconds,
+    steps) kept apart and its launches taken off the sub-phase's."""
+    from repro_torch import graph
     from repro_torch import random as rnd
     from repro_torch.core import baselines as B
     from repro_torch.core import coding as C
     from repro_torch.core import embeddings as E
     from repro_torch.core import frames as F
     from repro_torch.core import optim as O
+    from repro_torch.core.checks import recorded_programs
     from repro_torch.kernels import ops
-    out = {"launches": {}, "seconds": {}, "hadamard": {}, "steps": {}}
+    out = {"launches": {}, "seconds": {}, "hadamard": {}, "steps": {},
+           "eager_steps": {}, "capture_s": {}}
 
     def sync():
         if dev.type == "cuda":
@@ -1312,15 +1338,34 @@ def run_algorithms(P: dict, dev) -> dict:
         out["seconds"][name] = time.perf_counter() - t
         out["launches"][name] = ops.launch_counts()["fwht"]
 
-    def algorithm(family, fn, *args, **kw):
+    def timed_run(table, family, fn, args, kw):
         """fn(*args, **kw), its seconds and steps added to family's."""
         sync()
         t = time.perf_counter()
         trace = fn(*args, **kw)
         sync()
-        secs, steps = out["steps"].get(family, (0.0, 0))
-        out["steps"][family] = (secs + time.perf_counter() - t,
-                                steps + trace.dist_history.shape[0])
+        secs, steps = table.get(family, (0.0, 0))
+        table[family] = (secs + time.perf_counter() - t,
+                         steps + trace.dist_history.shape[0])
+        return trace
+
+    def algorithm(family, fn, *args, **kw):
+        """fn(*args, **kw) as a user calls it, then (rerun) inside
+        graph.eager(), bitwise."""
+        with recorded_programs() as made:
+            trace = timed_run(out["steps"], family, fn, args, kw)
+        out["capture_s"][family] = (out["capture_s"].get(family, 0.0)
+                                    + sum(sum(p.capture_s) for p in made))
+        del made
+        if rerun:
+            before = ops.launch_counts()
+            with graph.eager():
+                want = timed_run(out["eager_steps"], family, fn, args, kw)
+            after = ops.launch_counts()
+            ops.add_launches({k: before[k] - n for k, n in after.items()})
+            if not all(map(bitwise, trace, want)):
+                raise AssertionError(f"{family}: the captured run differs "
+                                     "from its graph.eager() rerun")
         return trace
 
     def hadamard(seed, n, N):
@@ -1491,9 +1536,12 @@ def compare_algorithms(cpu: dict, card: dict, P: dict) -> dict:
 
 def time_embeddings(P: dict, dev) -> dict:
     """Fig. 1c on the card: DE-Haar (30 LV rounds, dense), NDE-Haar and
-    NDE-Hadamard medians by CUDA events, frames drawn on the card; and one
+    NDE-Hadamard medians by CUDA events, frames drawn on the card (DE-Haar
+    captured, the first call capturing, and inside graph.eager()); and one
     DGD-DEF step on Alg. 1's problem (NDE-Hadamard, n 116, R 4) in host
-    microseconds."""
+    microseconds, captured (its 200-step run's capture included) and
+    eager."""
+    from repro_torch import graph
     from repro_torch import random as rnd
     from repro_torch.core import coding as C
     from repro_torch.core import embeddings as E
@@ -1511,9 +1559,13 @@ def time_embeddings(P: dict, dev) -> dict:
                                F.next_pow2(n))
         y = torch.randn(n, generator=g, device=dev) ** 3
         out[f"n{n}"] = {
-            "de_haar_ms": timed(lambda: E.democratic(haar, y), 3),
-            "nde_haar_ms": timed(lambda: E.near_democratic(haar, y), 10),
-            "nde_hadamard_ms": timed(lambda: E.near_democratic(had, y), 10)}
+            "de_haar_ms": timed(lambda: E.democratic(haar, y), 5)}
+        with graph.eager():
+            out[f"n{n}"]["de_haar_eager_ms"] = timed(
+                lambda: E.democratic(haar, y), 3)
+        out[f"n{n}"].update(
+            nde_haar_ms=timed(lambda: E.near_democratic(haar, y), 10),
+            nde_hadamard_ms=timed(lambda: E.near_democratic(had, y), 10))
         del haar
     out["fwht_launches"] = ops.launch_counts()["fwht"]
     p, steps = _to(P["alg1"], dev), 200
@@ -1522,12 +1574,15 @@ def time_embeddings(P: dict, dev) -> dict:
     cod = C.Codec(F.hadamard_frame(rnd.key(0, device=dev), ALG1_N),
                   C.CodecConfig(bits_per_dim=4.0))
     x0 = torch.zeros(ALG1_N, device=dev)
-    O.dgd_def(grad, x0, cod, alpha, 5)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    O.dgd_def(grad, x0, cod, alpha, steps)
-    torch.cuda.synchronize()
-    out["dgd_def_step_host_us"] = (time.perf_counter() - t) / steps * 1e6
+    for arm, ctx in (("", contextlib.nullcontext), ("_eager", graph.eager)):
+        with ctx():
+            O.dgd_def(grad, x0, cod, alpha, 5)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            O.dgd_def(grad, x0, cod, alpha, steps)
+            torch.cuda.synchronize()
+        out[f"dgd_def_step_host_us{arm}"] = ((time.perf_counter() - t)
+                                             / steps * 1e6)
     return out
 
 
@@ -1537,7 +1592,7 @@ def algorithms_phase(dev) -> dict:
     t = time.perf_counter()
     cpu = run_algorithms(P, torch.device("cpu"))
     cpu_s = time.perf_counter() - t
-    card = run_algorithms(P, dev)
+    card = run_algorithms(P, dev, rerun=dev.type == "cuda")
     worst = compare_algorithms(cpu, card, P)
     rates = card["a_alg1"]["rates"]
     log(f"[alg1] sigma {card['a_alg1']['sigma']} rates (card) "
@@ -1554,12 +1609,22 @@ def algorithms_phase(dev) -> dict:
         f"{json.dumps(ALG_TOL)})")
     timing = time_embeddings(P, dev)
     log("[embed time] " + json.dumps(timing))
-    steps_per_s = {dev_name: {k: n / secs for k, (secs, n)
-                              in r["steps"].items()}
-                   for dev_name, r in (("card", card), ("cpu", cpu))}
-    log("[alg] steps/s " + json.dumps(steps_per_s))
+    steps_per_s = {arm: {k: n / secs for k, (secs, n) in table.items()}
+                   for arm, table in (("card", card["steps"]),
+                                      ("card_eager", card["eager_steps"]),
+                                      ("cpu", cpu["steps"]))}
+    # the captured arm without its step programs' captures
+    steps_per_s["card_less_capture"] = {
+        k: n / (secs - card["capture_s"][k])
+        for k, (secs, n) in card["steps"].items()}
+    log("[alg] steps/s (card: captured steps, in turns with card_eager: "
+        "the same runs inside graph.eager(), bitwise) "
+        + json.dumps(steps_per_s))
+    log("[alg] step graphs' capture seconds per family (card) "
+        + json.dumps(card["capture_s"]))
     record = {"worst": worst, "tolerances": ALG_TOL,
               "steps_per_s": steps_per_s,
+              "capture_s": card["capture_s"],
               "fwht_launches": card["launches"],
               "cpu_fwht_launches": cpu["launches"],
               "seconds": {"card": card["seconds"], "cpu": cpu["seconds"],
@@ -1570,9 +1635,9 @@ def algorithms_phase(dev) -> dict:
     log(f"[alg] FWHT launches per sub-phase (card) "
         f"{json.dumps(card['launches'])}; seconds card "
         f"{json.dumps(card['seconds'])} cpu {json.dumps(cpu['seconds'])}")
-    for name, n in card["launches"].items():
-        if name != "b_alg2" and n == 0:
-            raise AssertionError(f"{name} launched no FWHT on the card")
+    if card["launches"] != FWHT_PER_SUBPHASE:
+        raise AssertionError(f"FWHT launches per sub-phase "
+                             f"{card['launches']}, want {FWHT_PER_SUBPHASE}")
     return record
 
 
@@ -3790,6 +3855,45 @@ def graph_timing_phase(dev, cfg, label: str, traffic: dict) -> dict:
 # each, its runs again inside graph.eager() from the same seed, held bitwise
 # (run beside each arm, so that no arm's state is held across phases), and
 # for yi-6b x4, xlstm-350m and the m 512 round, graph and eager in turns.
+LAUNCHER_ARGS = {"batch": 4, "prompt_len": 32, "gen": 16}   # 15e
+
+
+def launcher_phase(dev, cfg=None) -> dict:
+    """15e: launch.serve.serve at yi-6b full width and depth (f32 cache),
+    its prefill a captured program, then inside graph.eager() from the
+    same seed: tokens bitwise; each arm's prefill and decode seconds and
+    the prefill program's capture seconds."""
+    from repro_torch import configs, graph
+    from repro_torch.core.checks import recorded_programs
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import decode as decode_lib
+    cfg = cfg or configs.get("yi-6b")
+    out, seqs = {}, {}
+    for arm, ctx in (("graph", contextlib.nullcontext),
+                     ("eager", graph.eager)):
+        timings = {}
+        with recorded_programs() as made, ctx():
+            seqs[arm] = launch_serve.serve(cfg, **LAUNCHER_ARGS, device=dev,
+                                           timings=timings)
+        timings["prefill_capture_s"] = [
+            c for p in made if getattr(p.fn, "func", None)
+            is decode_lib.prefill for c in p.capture_s]
+        del made
+        out[arm] = timings
+        gc.collect()
+        torch.cuda.empty_cache()
+    if len(out["graph"]["prefill_capture_s"]) != 1:
+        raise AssertionError("15e: the launcher's prefill was not captured")
+    if not torch.equal(seqs["graph"], seqs["eager"]):
+        raise AssertionError("15e: the launcher's tokens differ between the "
+                             "captured prefill and graph.eager()")
+    out["tokens_bitwise"] = True
+    out["layers"] = cfg.num_layers
+    log(f"[15e launcher yi-6b x{cfg.num_layers}] tokens graph == eager; "
+        + json.dumps(out))
+    return out
+
+
 TRAIN_TURNS = 3           # 17a: pairs of a graph and an eager yi-6b x4 step
 XLSTM_TURNS = 1           # 17g: the same for xlstm-350m (~8 s an eager step)
 FED_TURNS = 4             # 17e: pairs of a graph and an eager m 512 round
@@ -4405,6 +4509,8 @@ def main() -> int:
     for key, cfg, traffic, _ in models15:
         p15["c"][key] = graph_timing_phase(dev, cfg, f"15c {key}", traffic)
     clock.done("15c decode step, graph and eager in turns")
+    p15["e"] = launcher_phase(dev)
+    clock.done("15e serve launcher x32, prefill graph and eager")
 
     # -- 16. serving across workers (the "model" axis) -----------------------
     p16 = tp_phase(dev)

@@ -58,7 +58,7 @@ def qsgd(s: int) -> Compressor:
         level = torch.abs(y) / torch.clamp(norm, min=TINY) * s
         lo = torch.floor(level)
         up = rnd.uniform(key, y.shape) < (level - lo)
-        s_t = torch.tensor(float(s), dtype=y.dtype, device=y.device)
+        s_t = torch.full((), float(s), dtype=y.dtype, device=y.device)
         zeta = (lo + up.to(y.dtype)) / s_t
         return torch.sign(y) * zeta * norm
 

@@ -100,8 +100,8 @@ class Codec:
             # the deterministic path relies on error feedback and a
             # contractive map, and rescaling would inflate β past 1.
             if self.config.unbiased_rescale and self.config.dithered:
-                xn = xn / torch.tensor(self.keep_fraction, dtype=xn.dtype,
-                                       device=xn.device)
+                xn = xn / torch.full((), self.keep_fraction,
+                                     dtype=xn.dtype, device=xn.device)
         return self.frame.apply(xn * scale)
 
     def roundtrip(self, y: torch.Tensor,

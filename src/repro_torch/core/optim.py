@@ -8,14 +8,25 @@
     dithered (unbiased) codec; no error feedback.
   * DQ-PSGD multi-worker (Alg. 3) — consensus mean of per-worker decodes.
 
-Each `lax.scan` of the reference is a Python loop over
-`random.split(key, steps)`, so step t draws under the reference's key t;
-the keys go in as a `random.KeyStack`, so each draw the oracle or the codec
-makes is made once for all steps (the same bits). The distance history is written into a preallocated tensor on x0's device
-and nothing in a loop reads a value back to the host, so on the card the
-steps queue without a synchronization. Algorithm 3 runs its m workers as
-the rows of one batch: one subgradient call, one encode and one decode per
-step (for a Hadamard frame, one FWHT launch each, over m rows).
+Each `lax.scan` of the reference is a Python driver over `steps` calls of
+one step program (`repro_torch.graph.Program`, built for the call): on the
+card the first call runs the step and captures it into a CUDA graph, and
+every later step is one replay. The carry (x̂, e or Σx̂, the range r, the
+distance history) is bound by pointer and written in place, so a replay
+copies only the step index t, which the step receives as a 0-d tensor;
+step t writes its distance at hist[t] on the device. Step t draws under
+the reference's key t of `random.split(key, steps)`: the keys go in as a
+`random.KeyStack`, each draw the oracle or the codec makes is made for a
+block of steps at once outside the graph (the same bits), and the driver
+refills a block in place when t enters the next one (`KeyStack.step`).
+Nothing in a step reads a value back to the host; the oracles, codecs and
+projections a caller passes must not either (on the card the capture
+raises, as a concrete read raises inside the reference's `lax.scan`).
+`with repro_torch.graph.eager():` runs the same steps uncaptured.
+
+Algorithm 3 runs its m workers as the rows of one batch: one subgradient
+call, one encode and one decode per step (for a Hadamard frame, one FWHT
+launch each, over m rows).
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import graph
 from repro_torch import random as rnd
 from repro_torch.core.coding import Codec
 
@@ -45,22 +57,56 @@ def _const(v, like: torch.Tensor) -> torch.Tensor:
 
 
 def _keys(key: Optional[torch.Tensor], x0: torch.Tensor, steps: int):
-    """The per-step keys; with no key, those of key(0) on x0's device."""
+    """The per-step keys; with no key, those of key(0) on x0's device. A
+    key on another device than x0 is refused: its draws would index x0's
+    tensors from that device (a hidden copy, which a capture rejects)."""
     if key is None:
         key = rnd.key(0, device=x0.device)
+    if key.device != x0.device:
+        raise ValueError(f"the key is on {key.device} but x0 is on "
+                         f"{x0.device}: make the key on x0's device")
     return rnd.KeyStack(rnd.split(key, steps))
+
+
+def _step_index(t, like: torch.Tensor) -> torch.Tensor:
+    """Step t as a 0-d int64 tensor on like's device: a step program
+    receives it so (`graph.Program` traces an int); under `graph.eager()`
+    it is the int, written here by a fill kernel."""
+    if isinstance(t, torch.Tensor):
+        return t
+    return torch.full((), t, dtype=torch.int64, device=like.device)
+
+
+def _record(hist: torch.Tensor, t: torch.Tensor, d: torch.Tensor) -> None:
+    """hist[t] = d on the device."""
+    hist.index_copy_(0, t.reshape(1), d.reshape(1))
+
+
+def _drive(step, steps: int, carry: tuple, keys=None) -> None:
+    """`steps` calls of `step(*carry, t)` as one Program binding the
+    carry; the key stack's blocks are refilled before each step."""
+    program = graph.Program(step, bound=tuple(
+        f"[{i}]" for i in range(len(carry))))
+    for t in range(steps):
+        if keys is not None:
+            keys.step(t)
+        program(*carry, t)
 
 
 def _ef_loop(roundtrip, grad_fn, x0, alpha, steps, keys, x_star) -> Trace:
     """The error-feedback loop DGD-DEF and DQGD share."""
-    hist = x0.new_empty(steps)
-    x_hat, e_prev = x0, torch.zeros_like(x0)
-    for t in range(steps):
+    carry = (x0.clone(), torch.zeros_like(x0), x0.new_empty(steps))
+
+    def step(x_hat, e_prev, hist, t):
+        t = _step_index(t, x_hat)
         u = grad_fn(x_hat + alpha * e_prev) - e_prev     # error feedback
         q_t = roundtrip(keys.at(t), u)                   # encode + decode
-        e_prev = q_t - u                                 # error for next step
-        x_hat = x_hat - alpha * q_t                      # descent step
-        hist[t] = _dist(x_hat, x_star)
+        e_prev.copy_(q_t - u)                            # error for next step
+        x_hat.sub_(alpha * q_t)                          # descent step
+        _record(hist, t, _dist(x_hat, x_star))
+
+    _drive(step, steps, carry, keys)
+    x_hat, _, hist = carry
     return Trace(x_hat, x_hat, hist)
 
 
@@ -91,30 +137,37 @@ def dqgd_schedule(grad_fn, x0, levels: int, alpha: float, steps: int,
     scale sent; once √n/levels exceeds the contraction the range cannot
     track the error — the √n penalty the democratic embedding removes."""
     rate = min(max(sigma_rate(L, mu), math.sqrt(n) / levels), 1.05)
-    hist = x0.new_empty(steps)
-    x_hat, e_prev = x0, torch.zeros_like(x0)
-    r = torch.tensor(L * D, dtype=x0.dtype, device=x0.device)
+    carry = (x0.clone(), torch.zeros_like(x0),
+             torch.full((), L * D, dtype=x0.dtype, device=x0.device),
+             x0.new_empty(steps))
     n_levels = _const(levels, x0)
-    for t in range(steps):
+
+    def step(x_hat, e_prev, r, hist, t):
         u = grad_fn(x_hat + alpha * e_prev) - e_prev
         delta = 2.0 * r / n_levels
         idx = torch.clamp(torch.floor((torch.clamp(u, -r, r) + r) / delta),
                           0, levels - 1)
         q_t = -r + (2.0 * idx + 1.0) * delta / 2.0
-        e_prev = q_t - u
-        x_hat = x_hat - alpha * q_t
-        r = r * rate
-        hist[t] = _dist(x_hat, x_star)
+        e_prev.copy_(q_t - u)
+        x_hat.sub_(alpha * q_t)
+        r.mul_(rate)
+        _record(hist, _step_index(t, x_hat), _dist(x_hat, x_star))
+
+    _drive(step, steps, carry)
+    x_hat, _, _, hist = carry
     return Trace(x_hat, x_hat, hist)
 
 
 def gd(grad_fn, x0, alpha, steps, x_star=None) -> Trace:
     """Unquantized gradient descent reference."""
-    hist = x0.new_empty(steps)
-    x = x0
-    for t in range(steps):
-        x = x - alpha * grad_fn(x)
-        hist[t] = _dist(x, x_star)
+    carry = (x0.clone(), x0.new_empty(steps))
+
+    def step(x, hist, t):
+        x.sub_(alpha * grad_fn(x))
+        _record(hist, _step_index(t, x), _dist(x, x_star))
+
+    _drive(step, steps, carry)
+    x, hist = carry
     return Trace(x, x, hist)
 
 
@@ -128,18 +181,22 @@ def dq_psgd(subgrad_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     `compressor_roundtrip` replaces it (naive baselines), and with neither
     the step is unquantized. Output x̄_T = (1/T)Σ x̂_t."""
     keys = _keys(key, x0, steps)
-    hist = x0.new_empty(steps)
-    x_hat, x_sum = x0, torch.zeros_like(x0)
-    for t in range(steps):
+    carry = (x0.clone(), torch.zeros_like(x0), x0.new_empty(steps))
+
+    def step(x_hat, x_sum, hist, t):
+        t = _step_index(t, x_hat)
         ko, kq = rnd.split2(keys.at(t))
         g = subgrad_fn(ko, x_hat)                        # noisy subgradient
         if compressor_roundtrip is not None:
             g = compressor_roundtrip(kq, g)
         elif codec is not None:
             g = codec.decode(codec.encode(g, kq))
-        x_hat = project(x_hat - alpha * g)
-        x_sum = x_sum + x_hat
-        hist[t] = _dist(x_hat, x_star)
+        x_hat.copy_(project(x_hat - alpha * g))
+        x_sum.add_(x_hat)
+        _record(hist, t, _dist(x_hat, x_star))
+
+    _drive(step, steps, carry, keys)
+    x_hat, x_sum, hist = carry
     return Trace(x_hat, x_sum / _const(steps, x0), hist)
 
 
@@ -161,18 +218,22 @@ def dq_psgd_multiworker(subgrad_fns_key: Callable, num_workers: int,
     mean of the m decodes, then a projected subgradient step."""
     keys = _keys(key, x0, steps)
     ids = torch.arange(num_workers, device=x0.device)
-    hist = x0.new_empty(steps)
-    x_hat, x_sum = x0, torch.zeros_like(x0)
-    for t in range(steps):
+    carry = (x0.clone(), torch.zeros_like(x0), x0.new_empty(steps))
+
+    def step(x_hat, x_sum, hist, t):
+        t = _step_index(t, x_hat)
         wkeys = rnd.split(keys.at(t), num_workers)
         g = subgrad_fns_key(ids, wkeys, x_hat)
         if compressor_roundtrip is not None:
             g = compressor_roundtrip(wkeys, g)
         elif codec is not None:
             g = codec.decode(codec.encode(g, wkeys))
-        x_hat = project(x_hat - alpha * torch.mean(g, dim=0))   # consensus
-        x_sum = x_sum + x_hat
-        hist[t] = _dist(x_hat, x_star)
+        x_hat.copy_(project(x_hat - alpha * torch.mean(g, dim=0)))
+        x_sum.add_(x_hat)                                # consensus
+        _record(hist, t, _dist(x_hat, x_star))
+
+    _drive(step, steps, carry, keys)
+    x_hat, x_sum, hist = carry
     return Trace(x_hat, x_sum / _const(steps, x0), hist)
 
 

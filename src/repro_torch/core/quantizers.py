@@ -23,8 +23,12 @@ from repro_torch import random as rnd
 
 
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
-    """v as a float32 tensor on like's device (a tensor v passes through)."""
-    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+    """v as a float32 tensor on like's device (a tensor v passes through).
+    A number is written by a fill kernel, no copy from the host, so a
+    captured step program can hold it (`repro_torch.graph`)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=torch.float32, device=like.device)
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 def levels_for_budget(bits_per_dim: float) -> int:

@@ -1,7 +1,9 @@
 """Captured programs: the port's counterpart of `jax.jit` for the serve
-programs, the train steps (`dist.step`, `dist.step.zero1`) and the
-federation's client rounds, decodes and aggregates, as CUDA graphs on the
-card.
+programs and the serve launcher's prefill, the train steps (`dist.step`,
+`dist.step.zero1`), the federation's client rounds, decodes and
+aggregates, the steps of the paper's algorithms (`core.optim`) and the
+democratic embedding (`core.embeddings.democratic`), as CUDA graphs on
+the card.
 
 The reference compiles each of these programs once per specialization
 (its static arguments, and the shape and dtype of every array leaf) and
@@ -15,9 +17,10 @@ reuses the compiled program. A `Program` does the same with
     the first time: loading the kernels' library, setting their
     shared-memory attributes, making cuBLAS's handle and workspace, an
     NCCL communicator. Before that run and after it the allocator's
-    cached blocks are freed (`torch.cuda.empty_cache`: it caches per
-    stream, and the capture allocates from a private pool, which cannot
-    take them), so a first call's peak is an eager step's, not twice its
+    cached blocks are freed when they exceed `_CACHE_SLACK`
+    (`torch.cuda.empty_cache`: it caches per stream, and the capture
+    allocates from a private pool, which cannot take them), so a first
+    call's reserved memory is an eager step's, not twice its
     temporaries; then the function is captured into a graph over the
     same buffers, which records its launches without executing them;
   * a later call copies its inputs into the static buffers and replays
@@ -56,12 +59,19 @@ eagerly on them and clones the outputs as a replay would, so the CPU
 exercises the binding, copying and cloning of the card. `eager()`, the counterpart of
 `jax.disable_jit`, runs programs as plain calls and records no
 specialization. There is no fallback: a capture that fails raises.
+
+A Program called while another Program's function runs (its first run,
+its capture, or its CPU run) is a plain call of its function: it records
+no specialization, no first run and no capture of its own, as `jax.jit`
+inlines a jitted function called under another trace. (The democratic
+embedding inside a captured DGD-DEF step is one such call.)
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import gc
+import threading
 import time
 import weakref
 
@@ -73,6 +83,13 @@ from repro_torch.kernels import ops
 _EAGER = [0]
 _SCALARS = {bool: torch.bool, int: torch.int64, float: torch.float32}
 _SIDE_STREAMS: dict = {}
+# cached bytes above which a first call hands the allocator's cache back;
+# below it what a side-stream run or a capture holds twice is small, and
+# `empty_cache` (a device synchronization and a cudaFree per segment)
+# cost 1-130 ms per first call of the small step programs of core.optim
+_CACHE_SLACK = 1 << 30
+# per thread: how many Program functions are running (nested calls inline)
+_INSIDE = threading.local()
 
 
 @contextlib.contextmanager
@@ -84,6 +101,19 @@ def eager():
         yield
     finally:
         _EAGER[0] -= 1
+
+
+def _inside() -> int:
+    return getattr(_INSIDE, "depth", 0)
+
+
+def _run(fn, args):
+    """fn(*args) as a Program's function: Programs it calls run inline."""
+    _INSIDE.depth = _inside() + 1
+    try:
+        return fn(*args)
+    finally:
+        _INSIDE.depth -= 1
 
 
 def _leaf_sig(x):
@@ -98,6 +128,14 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     if device not in _SIDE_STREAMS:
         _SIDE_STREAMS[device] = torch.cuda.Stream(device)
     return _SIDE_STREAMS[device]
+
+
+def _release_cache(device: torch.device) -> None:
+    """Free the allocator's cached blocks if they exceed _CACHE_SLACK."""
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    if cached > _CACHE_SLACK:
+        torch.cuda.empty_cache()
 
 
 def _drop(program_ref, key) -> None:
@@ -208,7 +246,7 @@ class Program:
         return mask
 
     def __call__(self, *args):
-        if _EAGER[0]:
+        if _EAGER[0] or _inside():
             return self.fn(*args)
         leaves, spec = tree_lib.flatten(args)
         mask = self._mask(spec)
@@ -229,14 +267,16 @@ class Program:
             device = next(x.device for x in leaves
                           if isinstance(x, torch.Tensor))
             me = weakref.ref(self)
+            # _drop bound now: a module-level program's entries may die
+            # at interpreter exit, after this module's globals are gone
             entry = _Graph(leaves, bound, device,
-                           lambda _, k=pins: _drop(me, k))
+                           lambda _, k=pins, drop=_drop: drop(me, k))
             full = entry.fill(leaves, bound)
             out = self._first_run(entry, spec, full, bound, device)
             self._graphs[pins] = entry
         else:                  # the CPU: fn runs on the static buffers
             full = entry.fill(leaves, bound)
-            out = self.fn(*tree_lib.unflatten(spec, full))
+            out = _run(self.fn, tree_lib.unflatten(spec, full))
         return _realize(_plan(out, full, bound), leaves)
 
     def _first_run(self, entry: _Graph, spec, full: list, bound: list,
@@ -244,7 +284,7 @@ class Program:
         """fn over the static buffers, once; on the card on a side stream,
         then captured into entry."""
         if device.type != "cuda":
-            return self.fn(*tree_lib.unflatten(spec, full))
+            return _run(self.fn, tree_lib.unflatten(spec, full))
         current = torch.cuda.current_stream(device)
         side = _side_stream(device)
         # the allocator caches freed blocks per stream and pool: the side
@@ -252,11 +292,11 @@ class Program:
         # capture's private pool on either. Without handing them back
         # first, a train step's first call would hold its temporaries
         # twice (three times after an eager step)
-        torch.cuda.empty_cache()
+        _release_cache(device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            out = self.fn(*tree_lib.unflatten(spec, full))
-        torch.cuda.empty_cache()
+            out = _run(self.fn, tree_lib.unflatten(spec, full))
+        _release_cache(device)
         self._capture(entry, spec, full, bound, side)
         current.wait_stream(side)
         return out
@@ -287,7 +327,7 @@ class Program:
                 graph.capture_begin(pool=self._pool,
                                     capture_error_mode="thread_local")
                 try:
-                    out = self.fn(*tree_lib.unflatten(spec, full))
+                    out = _run(self.fn, tree_lib.unflatten(spec, full))
                 except BaseException:
                     with contextlib.suppress(Exception):
                         graph.capture_end()

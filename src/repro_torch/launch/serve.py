@@ -5,18 +5,22 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Without a GPU, the default `--device cuda` raises rather than running on
-the CPU. The decode loop calls `dist.step.make_serve_step`'s captured
-program: on the card its first call captures a CUDA graph, the later ones
-replay it.
+the CPU. The prefill is a `repro_torch.graph.Program` binding the
+parameters (as the reference jits it, unregistered): on the card its call
+runs it and captures a CUDA graph. The decode loop calls
+`dist.step.make_serve_step`'s captured program: on the card its first call
+captures a CUDA graph, the later ones replay it. `with
+repro_torch.graph.eager():` runs both as plain calls.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import torch
 
-from repro_torch import configs, resolve_device
+from repro_torch import configs, graph, resolve_device
 from repro_torch.dist import step as step_lib
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
@@ -28,10 +32,11 @@ def _sync(device: torch.device) -> None:
 
 
 def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
-          device=None) -> torch.Tensor:
+          device=None, timings: dict | None = None) -> torch.Tensor:
     """Prefill `batch` random prompts of `prompt_len` tokens, then decode
     `gen` greedy tokens each, from seeded random weights on `device` (cuda
-    by default). Returns the (batch, gen) generated tokens."""
+    by default). Returns the (batch, gen) generated tokens; a `timings`
+    dict gets the prefill's and the decode loop's seconds."""
     if not cfg.decode_supported:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode")
     device = resolve_device(device)
@@ -43,11 +48,15 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
                             generator=gen_cpu, dtype=torch.int32).to(device)
     max_seq = prompt_len + gen
 
+    # the parameters ("[0]") bound by pointer: no call copies the weights
+    prefill = graph.Program(functools.partial(decode_lib.prefill, cfg,
+                                              max_seq=max_seq), ("[0]",))
     _sync(device)
     t0 = time.perf_counter()
-    logits, state = decode_lib.prefill(cfg, params, prompts, max_seq)
+    logits, state = prefill(params, prompts)
     _sync(device)
-    print(f"prefill[{batch}×{prompt_len}] {time.perf_counter()-t0:.2f}s "
+    prefill_s = time.perf_counter() - t0
+    print(f"prefill[{batch}×{prompt_len}] {prefill_s:.2f}s "
           f"(cache_len={decode_lib.cache_len(cfg, max_seq)}, "
           f"kv_bits={cfg.kv_quant_bits or 32}, device={device})")
 
@@ -61,6 +70,8 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         out.append(tok)
     seqs = torch.cat(out, dim=1).cpu()
     dt = time.perf_counter() - t0
+    if timings is not None:
+        timings.update(prefill_s=prefill_s, decode_s=dt)
     print(f"decode {gen-1} steps in {dt:.2f}s "
           f"({(gen-1)*batch/max(dt,1e-9):.1f} tok/s)")
     for b in range(min(batch, 4)):

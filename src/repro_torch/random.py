@@ -42,41 +42,101 @@ _DRAW_BLOCK = 1 << 22
 
 class KeyStack:
     """The keys of every step of a loop, (steps, ..., 2). `at(t)` is step
-    t's key; a draw under it is made for a block of steps at once."""
+    t's key; a draw under it is made for a block of steps at once.
 
-    def __init__(self, keys: torch.Tensor):
+    t is a Python int, or a 0-d int64 tensor on the keys' device: the step
+    index a captured step program receives (`repro_torch.graph`). Under a
+    tensor t a draw is a row read from its block (`index_select`, no host
+    read), and the block is made outside the step: the first draw at the
+    host step `step(t)` last set, and again, in place, whenever `step`
+    moves t into another block. So a captured step reads every block at a
+    fixed address, and a loop calls `step(t)` before step t."""
+
+    def __init__(self, keys: torch.Tensor, _root: "KeyStack" = None):
         self.keys = keys
         self._memo = {}
+        # the loop's host step and every block of this stack and of the
+        # stacks derived from it (split, split2), refilled by step()
+        self._root = self if _root is None else _root
+        if _root is None:
+            self._t = 0
+            self._blocks: list = []
 
-    def at(self, t: int) -> "StepKey":
+    def at(self, t) -> "StepKey":
         return StepKey(self, t)
 
-    def draw(self, fn, t: int, shape, *args):
+    def step(self, t: int) -> None:
+        """Step t is next: every block t has left is redrawn in place."""
+        root = self._root
+        root._t = t
+        for blk in root._blocks:
+            if t // blk.size != blk.b:
+                blk.fill(t // blk.size)
+
+    def draw(self, fn, t, shape, *args):
         """Step t's row of fn(step keys, (steps,) + shape, *args), drawn for
         a block of steps at once; the latest block of each draw is kept."""
         shape = tuple(shape)
-        block = max(1, _DRAW_BLOCK // max(1, math.prod(shape)))
-        b, i = divmod(t, block)
         memo_key = (fn.__name__, shape, args)
         hit = self._memo.get(memo_key)
-        if hit is None or hit[0] != b:
-            keys = self.keys[b * block:(b + 1) * block]
-            hit = (b, fn(keys, (keys.shape[0],) + shape, *args))
-            self._memo[memo_key] = hit
-        return hit[1][i]
+        if hit is None:
+            hit = self._memo[memo_key] = _Block(self, fn, shape, args)
+        if isinstance(t, torch.Tensor):
+            if hit.buf is None:
+                hit.fill(self._root._t // hit.size)
+                self._root._blocks.append(hit)
+            return hit.row(t)
+        b, i = divmod(t, hit.size)
+        if hit.b != b:
+            hit.buf, hit.b = hit.make(b), b
+        return hit.buf[i]
+
+
+class _Block:
+    """A KeyStack's draw for one block of steps: at most `_DRAW_BLOCK`
+    values, the rows of steps [b·size, (b + 1)·size)."""
+
+    def __init__(self, stack: KeyStack, fn, shape: tuple, args: tuple):
+        self.stack, self.fn, self.shape, self.args = stack, fn, shape, args
+        self.size = max(1, _DRAW_BLOCK // max(1, math.prod(shape)))
+        self.b, self.buf = None, None
+
+    def make(self, b: int) -> torch.Tensor:
+        keys = self.stack.keys[b * self.size:(b + 1) * self.size]
+        return self.fn(keys, (keys.shape[0],) + self.shape, *self.args)
+
+    def fill(self, b: int) -> None:
+        """Block b into the buffer, in place (a last, shorter block fills
+        its first rows)."""
+        new = self.make(b)
+        if self.buf is None:
+            rows = min(self.size, self.stack.keys.shape[0])
+            self.buf = (new if new.shape[0] == rows else
+                        new.new_empty((rows,) + tuple(new.shape[1:])))
+        if self.buf is not new:
+            self.buf[:new.shape[0]].copy_(new)
+        self.b = b
+
+    def row(self, t: torch.Tensor) -> torch.Tensor:
+        """The row of step t (a 0-d tensor) in the current block."""
+        i = torch.remainder(t, self.size).reshape(1)
+        return self.buf.index_select(0, i)[0]
 
 
 class StepKey:
-    """Key t of a KeyStack (see the module docstring)."""
+    """Key t of a KeyStack (see the module docstring); t an int or a 0-d
+    tensor (see `KeyStack`)."""
 
     __slots__ = ("stack", "t")
 
-    def __init__(self, stack: KeyStack, t: int):
+    def __init__(self, stack: KeyStack, t):
         self.stack, self.t = stack, t
 
     @property
     def value(self) -> torch.Tensor:
         """The key itself, (..., 2)."""
+        if isinstance(self.t, torch.Tensor):
+            return self.stack.keys.index_select(0, self.t.reshape(1))[0]
         return self.stack.keys[self.t]
 
 
@@ -158,7 +218,7 @@ def _derived(k: StepKey, fn, arg) -> StepKey:
     memo_key = ("keystack", fn.__name__, arg)
     memo = k.stack._memo
     if memo_key not in memo:
-        memo[memo_key] = KeyStack(fn(k.stack.keys, arg))
+        memo[memo_key] = KeyStack(fn(k.stack.keys, arg), k.stack._root)
     return memo[memo_key].at(k.t)
 
 
@@ -231,7 +291,7 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     f32 = torch.float32
 
     def c(v):
-        return torch.tensor(v, dtype=f32, device=x.device)
+        return torch.full((), v, dtype=f32, device=x.device)
 
     w = -torch.log1p(-x * x)
     lt = w < c(5.0)
@@ -253,7 +313,8 @@ def normal(k: torch.Tensor, shape) -> torch.Tensor:
     if isinstance(k, StepKey):
         return k.stack.draw(normal, k.t, shape)
     u = uniform(k, shape, -(1.0 - 2.0 ** -24), 1.0)   # f32 nextafter(-1, 0)
-    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=k.device)
+    sqrt2 = torch.full((), math.sqrt(2.0), dtype=torch.float32,
+                       device=k.device)
     return sqrt2 * erf_inv(u)
 
 

@@ -16,8 +16,9 @@ order). The codecs' paths (RATQ's rung, `ops.rotate`, lane-stacked
 encode / encode_ef / decode, sparsify-then-embed's ties) are held bitwise
 card against CPU or against the per-lane calls. The captured programs
 (`repro_torch.graph`: the serve programs, the train steps, the
-federation's programs; `-k graphs`, `-k train_graphs`) are held bitwise
-against `graph.eager()`. Two gloo ranks sharing the
+federation's programs, the paper's algorithms and the democratic
+embedding; `-k graphs`, `-k train_graphs`, `-k core_graphs`) are held
+bitwise against `graph.eager()`. Two gloo ranks sharing the
 card (this file run as a script is one rank) hold ZeRO-1 against the
 all-gather consensus and the mesh federation against the vmap backend,
 bitwise."""
@@ -495,6 +496,65 @@ def test_cuda_train_graphs_federation_matches_the_eager_arm(cuda):
     assert hist == hist_e
     assert _bits_equal(server, server_e) and _bits_equal(states, states_e)
     assert launches == launches_e and launches["encode_ef"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Captured core programs (the paper's algorithms, the democratic embedding)
+# ---------------------------------------------------------------------------
+def _core_cases():
+    from repro_torch.core import checks
+    return sorted(checks.CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw_block", [None, 64])
+@pytest.mark.parametrize("case", _core_cases())
+def test_cuda_core_graphs_match_the_eager_arm(cuda, case, draw_block,
+                                              monkeypatch):
+    """Each algorithm's step, captured once and replayed for 20 steps,
+    gives the eager arm's x_final, x_avg and dist_history bitwise, with
+    the same kernel launches. With a draw block of 64 values every draw
+    crosses block boundaries, refilled in place between replays."""
+    import contextlib
+    from repro_torch import graph
+    from repro_torch import random as R
+    from repro_torch.core import checks
+    if draw_block is not None:
+        monkeypatch.setattr(R, "_DRAW_BLOCK", draw_block)
+    runs = []
+    with checks.recorded_programs() as made:
+        for eager in (False, True):
+            before = ops.launch_counts()
+            with graph.eager() if eager else contextlib.nullcontext():
+                trace = checks.run(case, cuda, steps=20)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            runs.append((trace, {k: after[k] - before[k] for k in after}))
+    (got, launches), (want, launches_eager) = runs
+    steps = [p for p in made if p.fn.__name__ == "step"]
+    assert len(steps) == 2 and len(steps[0].capture_s) == 1
+    assert not steps[1].capture_s
+    assert all(_bits_equal(x, y) for x, y in zip(got, want))
+    assert launches == launches_eager
+    assert torch.isfinite(got.dist_history).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hadamard", "haar"])
+def test_cuda_core_graphs_democratic_matches_eager(cuda, kind):
+    """Top-level democratic captured (one capture, then a replay on new
+    inputs) against graph.eager(), bitwise."""
+    from repro_torch import graph
+    from repro_torch.core import checks
+    from repro_torch.core import embeddings as E
+    frame, y = checks.democratic_case(kind, cuda)
+    captures = len(E._DEMOCRATIC.capture_s)
+    got = [E.democratic(frame, y), E.democratic(frame, y * 2.0)]
+    with graph.eager():
+        want = [E.democratic(frame, y), E.democratic(frame, y * 2.0)]
+    torch.cuda.synchronize()
+    assert len(E._DEMOCRATIC.capture_s) == captures + 1
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
 
 
 # ---------------------------------------------------------------------------
