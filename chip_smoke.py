@@ -19,9 +19,11 @@ prints its seconds):
         (n, N) {whole rows of 32, 256, 8192 (the flat path); whole rows
         of 96, 12288 (a wpr not a power of two) and 255, 128 and 1 of 256
         or 32 (trimmed rows), the row path}; above N = 8192 (the FWHT's
-        and the encoders' passes) the codec kernels and the FWHT the same
-        way over bits × N {16384, 32768, 2^20} × the four modes × rows
-        {1, 37};
+        passes; the encoders' row kernel at 2^14 and 2^15, their passes
+        at 2^20) the codec kernels and the FWHT the same way over bits ×
+        N {16384, 32768, 2^20} × the four modes × rows {1, 37}, and the
+        encoders alone at N {16384, 32768} × rows {300} (more rows than
+        SMs: the persistent blocks stride);
      b. quantize_pack (bitwise) over bits × N {32, 128, 256, 8192, 12288}
         × rows {1, 37, 1031}, with a zero scale and a row whose maximum
         sits in its last lane, from aligned and unaligned x (the flat
@@ -54,9 +56,12 @@ prints its seconds):
         on one row of 2^23, 2^26 and 2^28 (the dsc codec's frames of
         yi-6b; no library time: H does not fit) and at (4096, 16384) and
         (2048, 32768) beside a dense x @ H (H 1 GiB and 4 GiB); encode_ef
-        and the dithered, masked encode at chunk 16384 on the 1-layer
-        yi-6b tree's leaves (phase 5b's shapes), checked bitwise, timed
-        and bounded, with their launches per tree;
+        and the dithered, masked encode at chunk 16384 (phase 5b's
+        shapes) and 32768 on the 1-layer yi-6b tree's leaves (the
+        encoders' row kernel), checked bitwise, timed and bounded (with
+        the share of the bound), with their launches per tree and the
+        device activities of 4 calls under torch.profiler (the row kernel
+        only, at most once a call: no memset, no pass);
   4. train yi-6b at full width (d_model 4096, 32/4 heads, d_ff 11008,
      vocab 64000) cut to 4 of its 32 layers: 3 steps at the launcher's
      defaults (batch 8, seq 128, R = 4, allgather_packed, error feedback);
@@ -67,8 +72,8 @@ prints its seconds):
      runs the plain encode kernel with its dither and mask (the graph arm
      of 17b);
   5b. 2 steps at 1 layer with chunk 16384 (R 4, allgather_packed, EF):
-     encode_ef, unpack_dequant and fwht (all through their passes) must
-     launch 12 times per step; finite loss and params; the wq leaf's
+     encode_ef (its row kernel), unpack_dequant and fwht (its passes)
+     must launch 12 times per step; finite loss and params; the wq leaf's
      words, scales and EF residual (first and last 64 chunks) bitwise its
      CPU encode (the graph arm of 17c);
   6. the reduced yi-6b for 2 steps on the card and on the CPU from the same
@@ -2047,7 +2052,42 @@ def time_quantize_pack_ratq(ops, ref, dev, cfg) -> dict:
 # dense x @ H beside the FWHT's passes at these (N, rows): H is 1 GiB and
 # 4 GiB, x 256 MB; at the dsc frames' N (checks.FWHT_HUGE_N) H does not fit
 LARGE_LIB_SHAPES = ((16384, 4096), (32768, 2048))
-LARGE_CHUNK = 16384          # the codec chunk of 3f's encoders and phase 5b
+LARGE_CHUNK = 16384          # the codec chunk of phase 5b
+ROW_CHUNKS = (16384, 32768)  # 3f's encoder chunks: the encoders' row kernel
+
+
+ROW_CALLS = 4                # 3f: the wrapper calls of one profiled window
+
+
+def device_activities(fn, calls: int = ROW_CALLS, tries: int = 3) -> list:
+    """Names of the device activities (kernels, memsets, copies) of
+    `calls` calls of fn under torch.profiler, in start order, after a
+    warm-up call. The profiler has been seen to drop activities at the
+    edges of a short window, so each window is fenced by a spin kernel
+    before and after the calls, and one in which either fence is missing
+    is taken again, up to `tries` times."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        dev = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        names = [e.name for e in dev]
+        fences = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        if len(fences) == 2:
+            return names[fences[0] + 1:fences[1]]
+    raise AssertionError(f"3f: the profiler dropped a fence of each of "
+                         f"{tries} windows")
 
 
 def time_large_fwht(ops, ref, dev) -> dict:
@@ -2083,18 +2123,20 @@ def time_large_fwht(ops, ref, dev) -> dict:
     return out
 
 
-def time_large_encoders(ops, ref, dev, cfg) -> dict:
+def time_large_encoders(ops, ref, dev, cfg, chunk: int = LARGE_CHUNK,
+                        plain: bool = True) -> dict:
     """3f: encode_ef (EF, f32 residual) and encode (dither, keep-0.5 row
-    mask) at chunk LARGE_CHUNK on `cfg`'s leaves (phase 5b's shapes): each
-    leaf's words, scales and residual bitwise the plain version; the tree
-    timed (CUDA events, medians of 5; plain of 3) with its bound and its
-    launches (one per leaf)."""
+    mask) at `chunk` on `cfg`'s leaves (phase 5b's shapes at LARGE_CHUNK):
+    each leaf's words, scales and residual bitwise the plain version; the
+    tree timed (CUDA events, medians of 5; plain of 3 where `plain`) with
+    its bound, the share of it, its launches (one per leaf) and the device
+    activities of ROW_CALLS calls on the first leaf (torch.profiler)."""
     from repro_torch import tree as tree_lib
     from repro_torch.dist import gradcomp as G
     from repro_torch.kernels import cost as kcost
     from repro_torch.models import model as model_lib
-    gc = G.GradCompConfig(bits=4, chunk=LARGE_CHUNK)
-    bits, chunk = gc.bits, gc.chunk
+    gc = G.GradCompConfig(bits=4, chunk=chunk)
+    bits = gc.bits
     shapes = tree_lib.leaves(model_lib.param_shapes(cfg),
                              is_leaf=lambda s: isinstance(s, tuple))
     g = torch.Generator(device=dev)
@@ -2126,33 +2168,51 @@ def time_large_encoders(ops, ref, dev, cfg) -> dict:
     [ops.encode(u, s, bits, dither=d, mask=m)
      for (u, s), (d, m) in zip(leaves, draws)]
     launches = ops.launch_counts()
+    (u0, s0), (d0, m0) = leaves[0], draws[0]
+    calls = {
+        "encode_ef": (lambda: [ops.encode_ef(u, s, bits) for u, s in leaves],
+                      lambda: [ref.encode_ef(u, s, bits) for u, s in leaves],
+                      lambda: ops.encode_ef(u0, s0, bits),
+                      kcost.encode_ef(coords, rows, chunk, bits)),
+        "encode": (lambda: [ops.encode(u, s, bits, dither=d, mask=m)
+                            for (u, s), (d, m) in zip(leaves, draws)],
+                   lambda: [ref.encode(u, s, bits, dither=d, mask=m)
+                            for (u, s), (d, m) in zip(leaves, draws)],
+                   lambda: ops.encode(u0, s0, bits, dither=d0, mask=m0),
+                   kcost.encode(coords, rows, chunk, bits, dither=True,
+                                mask=True))}
     out = {"leaves": len(leaves), "rows": rows, "coordinates": coords,
            "chunk": chunk}
-    b, by = bound_ms(*kcost.encode_ef(coords, rows, chunk, bits))
-    out["encode_ef"] = {
-        "launches_per_tree": launches["encode_ef"],
-        "ms": timed(lambda: [ops.encode_ef(u, s, bits) for u, s in leaves]),
-        "plain_ms": timed(lambda: [ref.encode_ef(u, s, bits)
-                                   for u, s in leaves], 3),
-        "library_ms": None, "bound_ms": b, "bound_by": by,
-        "max_abs_err": 0.0}
-    b, by = bound_ms(*kcost.encode(coords, rows, chunk, bits, dither=True,
-                                   mask=True))
-    out["encode"] = {
-        "launches_per_tree": launches["encode"],
-        "ms": timed(lambda: [ops.encode(u, s, bits, dither=d, mask=m)
-                             for (u, s), (d, m) in zip(leaves, draws)]),
-        "plain_ms": timed(lambda: [ref.encode(u, s, bits, dither=d, mask=m)
-                                   for (u, s), (d, m) in zip(leaves, draws)],
-                          3),
-        "library_ms": None, "bound_ms": b, "bound_by": by,
-        "max_abs_err": 0.0}
-    del leaves, draws, u, s, d, m
+    for name, (tree_call, plain_call, one_call, cost) in calls.items():
+        b, by = bound_ms(*cost)
+        ms = timed(tree_call)
+        out[name] = {
+            "launches_per_tree": launches[name], "ms": ms,
+            "plain_ms": timed(plain_call, 3) if plain else "not measured",
+            "library_ms": None, "bound_ms": b, "bound_by": by,
+            "share_of_bound": b / ms, "max_abs_err": 0.0,
+            f"device_activities_of_{ROW_CALLS}_calls":
+                device_activities(one_call)}
+    del leaves, draws, u, s, d, m, u0, s0, d0, m0, calls
     torch.cuda.empty_cache()
     return out
 
 
-# -- phase 5b: training at chunk 16384 (the encoders' and the FWHT's passes) --
+def check_row_route(enc: dict, chunk: int) -> None:
+    """3f: ROW_CALLS wrapper calls at `chunk` (the row kernel) ran the row
+    kernel and nothing else (no memset, no pass), at most once a call (a
+    dropped activity can only lower the count)."""
+    for name in ("encode_ef", "encode"):
+        k = enc[name][f"device_activities_of_{ROW_CALLS}_calls"]
+        if not k or len(k) > ROW_CALLS or not all(
+                "encode_row_kernel" in n for n in k):
+            raise AssertionError(f"3f: {ROW_CALLS} {name} calls at chunk "
+                                 f"{chunk} ran {k}, want one row kernel "
+                                 "each")
+        enc[name]["device_kernels_per_call"] = len(k) / ROW_CALLS
+
+
+# -- phase 5b: training at chunk 16384 (the encoders' row kernel, FWHT passes)
 def train_chunk_phase(dev, cfg=None, steps: int = 2) -> dict:
     """5b: yi-6b at full width cut to 1 layer, `steps` steps of
     launch.train.train at the launcher's defaults but chunk LARGE_CHUNK
@@ -4328,8 +4388,12 @@ def main() -> int:
     large_fwht = time_large_fwht(ops, ref, dev)
     for key, r in large_fwht.items():
         log(json.dumps({"kernel": key, **r}))
-    large_encoders = time_large_encoders(ops, ref, dev, cfg1)
-    log(json.dumps({"kernel": "encoders/chunk 16384", **large_encoders}))
+    large_encoders = {}
+    for chunk in ROW_CHUNKS:
+        enc = time_large_encoders(ops, ref, dev, cfg1, chunk)
+        log(json.dumps({"kernel": f"encoders/chunk {chunk}", **enc}))
+        check_row_route(enc, chunk)
+        large_encoders[f"chunk {chunk}"] = enc
     clock.done("3f FWHT and encoders above N = 8192")
 
     # -- 4. the main path: full-width yi-6b, 4 layers, launcher defaults -----
@@ -4532,8 +4596,21 @@ def main() -> int:
                                    "src/repro/kernels/quantdecode.py:100",
                                    serve_counts),
     }
+    # the encoders' row kernel at chunk 16384: encode_ef launched by 5b's
+    # training, encode by 3f's tree call (counts reset before each)
+    row = large_encoders[f"chunk {LARGE_CHUNK}"]
+    results["encode_ef/row"] = row["encode_ef"]
+    results["encode/row"] = row["encode"]
+    names["encode_ef/row"] = (names["encode_ef"][0], names["encode_ef"][1],
+                              {"encode_ef/row":
+                               train_chunk["launches"]["encode_ef"]})
+    names["encode/row"] = (names["encode"][0], names["encode"][1],
+                           {"encode/row":
+                            row["encode"]["launches_per_tree"]})
     kernels = []
     for name, (src, replaces, counts) in names.items():
+        if not counts[name]:
+            raise AssertionError(f"{name}: launched no time on its path")
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],

@@ -29,7 +29,7 @@
 // block loads its tile into shared memory as float4s, runs the k stages
 // there and writes the tile back; tiles are disjoint, so the passes after
 // the first run in place. Only the last pass multiplies by f32(1/sqrt(N)).
-// The decode and the encoders above N = 8192 (quantencode.py) fold their
+// The decode and the encoders from N = 2^16 (quantencode.py) fold their
 // per-value steps into the first pass's loads (signs; row mask, rescale)
 // and the last pass's stores (signs, bf16 rounding, the EF subtract, the
 // row maximum by atomicMax on the bits of |x|). Element offsets are int64.
@@ -266,11 +266,9 @@ extern "C" int ndsc_fwht_pass(const float* in, float* out,
   }
   const int tile = 1 << tile_log;
   const int smem = tile * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        fwht_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
+  static ndsc::LaunchCache cache;
+  const cudaError_t rc = ndsc::opt_in_smem(fwht_pass_kernel, smem, &cache);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   int threads = tile / 32;
   threads = threads < 32 ? 32 : threads > 1024 ? 1024 : threads;
   const PassArgs a{in, out, signs_in, row_mul, signs_out, sub_from, rowmax,

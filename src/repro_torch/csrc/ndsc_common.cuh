@@ -35,6 +35,60 @@ inline int log2_int(int n) {
 
 inline bool is_pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
 
+// What one kernel has been granted on each device: the dynamic shared
+// memory it opted in to (cudaFuncSetAttribute) and, for a persistent
+// kernel, the blocks of it that fit on the card at once.
+constexpr int kMaxDevices = 64;
+struct LaunchCache {
+  int smem[kMaxDevices];
+  int blocks[kMaxDevices];
+};
+
+// Opt `kernel` in to `bytes` of dynamic shared memory on the current
+// device: Hopper gives a block up to 227 KB, but above 48 KB only after
+// this call. It is made once per (kernel, device) and size; a failure is
+// returned and not cached.
+template <typename Kernel>
+inline cudaError_t opt_in_smem(Kernel kernel, int bytes, LaunchCache* c) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < kMaxDevices && c->smem[dev] >= bytes) return cudaSuccess;
+  rc = cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            bytes);
+  if (rc == cudaSuccess && dev < kMaxDevices) c->smem[dev] = bytes;
+  return rc;
+}
+
+// The blocks of `threads` threads and `bytes` of dynamic shared memory that
+// fit on the current device at once (after the opt-in), read once per
+// (kernel, device); an error where not one block fits.
+template <typename Kernel>
+inline cudaError_t persistent_blocks(Kernel kernel, int threads, int bytes,
+                                     LaunchCache* c, int* blocks) {
+  cudaError_t rc = opt_in_smem(kernel, bytes, c);
+  if (rc != cudaSuccess) return rc;
+  int dev = 0;
+  rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < kMaxDevices && c->blocks[dev] > 0) {
+    *blocks = c->blocks[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return rc;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                     threads, bytes);
+  if (rc != cudaSuccess) return rc;
+  if (sms * per_sm <= 0) return cudaErrorInvalidConfiguration;
+  if (dev < kMaxDevices) c->blocks[dev] = sms * per_sm;
+  *blocks = sms * per_sm;
+  return cudaSuccess;
+}
+
 // In place, normalized FWHT of `nrows` rows of length n = 2^log2n held in
 // shared memory. All threads of the block must call it; it synchronizes
 // before the first stage and after the final scaling.

@@ -16,8 +16,12 @@
 // Bound on an H100: bytes. Encode reads 4 B per coordinate (8 B with the
 // dither) and writes R/8 B; the EF variant also writes the 4 B residual.
 // The FWHT and quantizer cost O(log2 n) operations per coordinate.
-// Design, for n <= ndsc::kWarpMaxN (warp_rows.cuh): a warp owns a row (or
-// 128/n rows below n = 128) with V = max(4, n/32) consecutive values per
+//
+// Three routes, chosen by n (repro_torch/kernels/quantencode.py,
+// encode_path); each is one launch per call.
+//
+// "fused", 32 <= n <= ndsc::kWarpMaxN (warp_rows.cuh): a warp owns a row
+// (or 128/n rows below n = 128) with V = max(4, n/32) consecutive values per
 // lane in registers, moved as float4s. Each lane loads its V signs once and
 // keeps them for every row; the warp strides over rows and loads the next
 // row's u before it works on the current one. The FWHT runs in registers
@@ -31,17 +35,59 @@
 // device memory sees u (and the dither), the words, the scale and the
 // residual once each. The kernels are instantiated per (V, R) so that every
 // register index is a constant. The cap kWarpMaxN = 1024 is the largest n
-// whose kernels compile without spilling (226 registers at V = 32; one
-// 4-byte spill at V = 8, R = 2, which ptxas chose at 64 registers). Above
-// it a block holds max(1, 2048/n) rows in shared memory, runs
+// whose kernels compile without spilling (226 registers at V = 32).
+// "fused" above it, up to n = ndsc::kMaxN = 8192: a block holds
+// max(1, 2048/n) rows in shared memory (8 KB; 32 KB at 8192), runs
 // ndsc::fwht_tile there, takes the row maximum with one shared atomicMax
 // per warp after a redux.sync, and packs whole words per thread with
 // ndsc::quantize_pack_word (which quantpack.cu's row kernel shares).
-// N > 8192 (one row past a block's shared memory) does not come here:
-// repro_torch/kernels/quantencode.py runs it as passes, fwht.cu's
-// ndsc_fwht_pass with the sign flip and the row maximum folded in, then
-// quantpack.cu's flat quantize kernel with the dither and the mask (and
-// for the residual its flat unpack kernel and the passes again).
+//
+// "row", n = 2^14 and 2^15 (kRowMinN..kRowMaxN): encode_row_kernel,
+// persistent blocks (two per SM at 2^14, one at 2^15) striding over rows,
+// T = n/32 threads (512 or 1024) with V = 32 values each in registers.
+// Shared memory serves only the exchanges between two layouts of the row
+// and the loads:
+//   A (loads, pack): thread (warp w, lane l) holds the float4 groups
+//     j = 0..7 at positions 4l + 128j + 1024w; register 4j + c is position
+//     4l + 128j + 1024w + c. Position bits 0-1 and 7-9 are register bits,
+//     bits 2-6 the lane, bits 10.. the warp.
+//   B (top stages, row maximum, residual): thread t holds positions
+//     t + T*r, r = 0..31: bits 0..log2(T)-1 are the thread, the rest
+//     register bits.
+// The FWHT runs bits 0-1 in registers, 2-6 across the warp (one
+// __shfl_xor_sync and one fma by +-1 per value: p + v*(+-1) rounds once,
+// as the pair's a + b or a - b), 7-9 in registers; one exchange (float4
+// stores in A, scalar loads in B, both free of bank conflicts) brings bits
+// 10..log2(n)-1 into registers; then the single multiply by f32(1/sqrt n).
+// The row maximum is redux.sync on the bits of |x| and one shared
+// atomicMax per warp. A second exchange takes x back to layout A, where the
+// dither is added, each thread quantizes its 8 groups and packs them: a
+// word of k = 32/R codes spans k/4 lanes (1, 2, 4 or 8), an OR-shuffle
+// tree combines their disjoint fields and the first lane stores it. The
+// EF inverse decodes each lane's codes from the masked word and runs the
+// same schedule (A, exchange, B); the residual u - y is formed in layout B.
+// u is not kept: a thread has 64 registers, too few to hold u's 32 values
+// beside the 32 being transformed. Once the inverse's exchange has been
+// read, one TMA bulk copy loads the row's u again into the exchange buffer
+// (from L2 where it still is) while the top stages run.
+// Loads overlap work: the first half of a block's next row is in flight
+// into a staging buffer by a TMA bulk copy (cp.async.bulk with an
+// mbarrier) while the current row runs; the warps of the second half read
+// theirs into registers directly.
+// Shared memory: the exchange buffer (n floats) plus the staging buffer
+// (n/2 floats): 96 KB a block at 2^14 (two blocks an SM), 192 KB at 2^15,
+// after the opt-in of ndsc::opt_in_smem (once per device). Registers:
+// __launch_bounds__ holds both at 64 a thread (65,536 an SM), without
+// spills (chip_smoke.py phase 1 prints the counts and spills). What holds
+// the kernel back (PERF.md): at 2^15 the single block of 1024 threads an
+// SM, whose block-wide barriers (seven a row with the residual, four
+// without) stall the whole SM; the shuffle stages and the quantizer's
+// division cost issue slots at both n.
+// n >= 2^16 does not come here: repro_torch/kernels/quantencode.py runs it
+// as passes, fwht.cu's ndsc_fwht_pass with the sign flip and the row
+// maximum folded in, then quantpack.cu's flat quantize kernel with the
+// dither and the mask (and for the residual its flat unpack kernel and
+// the passes again).
 #include <cuda_bf16.h>
 
 #include "ndsc_common.cuh"
@@ -278,12 +324,339 @@ __global__ void encode_smem_kernel(const EncodeArgs a, int bits) {
   }
 }
 
+// ---- the "row" route: n = 2^14 and 2^15, one block per row ------------------
+
+constexpr int kRowMinN = 1 << 14;
+constexpr int kRowMaxN = 1 << 15;
+constexpr int kRowV = 32;                 // values per thread
+
+__device__ inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ inline void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(1)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One thread: a bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global src into shared dst, completing on `bar`.
+__device__ inline void bulk_load(float* dst, const float* src, int bytes,
+                                 uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ inline void butterfly(float& a, float& b) {
+  const float x = a;
+  a = __fadd_rn(x, b);
+  b = __fsub_rn(x, b);
+}
+
+// Position bits 0-9 of the row in layout A: register stages for bits 0-1
+// (register stride 1, 2), lane stages for bits 2-6, register stages for
+// bits 7-9 (register stride 4, 8, 16).
+__device__ inline void fwht_low(float (&v)[kRowV], int lane) {
+#pragma unroll
+  for (int h = 1; h <= 2; h <<= 1) {
+#pragma unroll
+    for (int i = 0; i < kRowV; ++i)
+      if ((i & h) == 0) butterfly(v[i], v[i + h]);
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    // the partner holds position ^ 4o; the lower keeps b + a, the upper
+    // a + (-b): one rounding each, as ref.fwht's pair
+    const float sgn = (lane & o) ? -1.0f : 1.0f;
+#pragma unroll
+    for (int i = 0; i < kRowV; ++i) {
+      const float p = __shfl_xor_sync(ndsc::kFullMask, v[i], o);
+      v[i] = __fmaf_rn(v[i], sgn, p);
+    }
+  }
+#pragma unroll
+  for (int h = 4; h < kRowV; h <<= 1) {
+#pragma unroll
+    for (int i = 0; i < kRowV; ++i)
+      if ((i & h) == 0) butterfly(v[i], v[i + h]);
+  }
+}
+
+// Position bits 10..LOG2N-1 in layout B (register bit q is position bit
+// LOG2N - 5 + q), then the single multiply by f32(1/sqrt(n)).
+template <int LOG2N>
+__device__ inline void fwht_high(float (&v)[kRowV], float inv_sqrt_n) {
+#pragma unroll
+  for (int h = 1 << (15 - LOG2N); h < kRowV; h <<= 1) {
+#pragma unroll
+    for (int i = 0; i < kRowV; ++i)
+      if ((i & h) == 0) butterfly(v[i], v[i + h]);
+  }
+#pragma unroll
+  for (int i = 0; i < kRowV; ++i) v[i] = __fmul_rn(v[i], inv_sqrt_n);
+}
+
+// Layout A -> B through buf (the caller synchronizes before buf is written
+// again).
+template <int T>
+__device__ inline void to_b(float (&v)[kRowV], float* buf, int a0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    *reinterpret_cast<float4*>(buf + a0 + 128 * j) =
+        make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kRowV; ++r) v[r] = buf[threadIdx.x + T * r];
+}
+
+// Layout B -> A through buf (the caller synchronizes before buf is written
+// again).
+template <int T>
+__device__ inline void to_a(float (&v)[kRowV], float* buf, int a0) {
+#pragma unroll
+  for (int r = 0; r < kRowV; ++r) buf[threadIdx.x + T * r] = v[r];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 t = *reinterpret_cast<const float4*>(buf + a0 + 128 * j);
+    v[4 * j] = t.x;
+    v[4 * j + 1] = t.y;
+    v[4 * j + 2] = t.z;
+    v[4 * j + 3] = t.w;
+  }
+}
+
+template <int LOG2N>
+struct RowShape {
+  static constexpr int N = 1 << LOG2N;
+  static constexpr int T = N / kRowV;                   // 512 or 1024
+  static constexpr int STAGE = N / 2;     // the next row's first half
+  static constexpr int SMEM = (N + STAGE) * static_cast<int>(sizeof(float));
+  // blocks per SM: two of 96 KB at 2^14; at 2^15 the 192 KB leave no room
+  static constexpr int BLOCKS = LOG2N == 14 ? 2 : 1;
+};
+
+template <int LOG2N, int BITS>
+__global__ void __launch_bounds__(RowShape<LOG2N>::T,
+                                  RowShape<LOG2N>::BLOCKS)
+    encode_row_kernel(const EncodeArgs a) {
+  using S = RowShape<LOG2N>;
+  constexpr int N = S::N, T = S::T;
+  constexpr int K = 32 / BITS;               // codes per word
+  constexpr int G = K / 4;                   // lanes a word spans
+  constexpr int WPR = N / K;                 // words per row
+  constexpr unsigned kCodeMask = (1u << BITS) - 1u;
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);   // N floats: the exchange
+  float* stage = buf + N;                         // S::STAGE floats
+  __shared__ uint64_t bar;                        // the staged half row
+  __shared__ uint64_t bar_u;                      // u again, into buf
+  __shared__ unsigned row_max;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int a0 = 4 * lane + 1024 * (tid >> 5);    // group 0's position in A
+  const bool staged = a0 < S::STAGE;              // uniform over the warp
+  // bit offset of the lane's first code in its word
+  const int shift0 = (4 * lane) % K * BITS;
+  const float inv_levels = ndsc::inv_levels(BITS);
+
+  int64_t row = blockIdx.x;
+  if (tid == 0) {
+    mbar_init(&bar);
+    mbar_init(&bar_u);
+    row_max = 0;
+    if (row < a.rows) bulk_load(stage, a.x + row * N, S::STAGE * 4, &bar);
+  }
+  __syncthreads();
+  uint32_t parity = 0, parity_u = 0;
+  for (; row < a.rows; row += gridDim.x) {
+    const float* xr = a.x + row * N;
+    float v[kRowV];
+    if (staged) {
+      mbar_wait(&bar, parity);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 t = *reinterpret_cast<const float4*>(stage + a0 + 128 * j);
+        v[4 * j] = t.x, v[4 * j + 1] = t.y, v[4 * j + 2] = t.z;
+        v[4 * j + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 t = *reinterpret_cast<const float4*>(xr + a0 + 128 * j);
+        v[4 * j] = t.x, v[4 * j + 1] = t.y, v[4 * j + 2] = t.z;
+        v[4 * j + 3] = t.w;
+      }
+    }
+    parity ^= 1u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 g = *reinterpret_cast<const float4*>(a.signs + a0 + 128 * j);
+      v[4 * j] = __fmul_rn(v[4 * j], g.x);
+      v[4 * j + 1] = __fmul_rn(v[4 * j + 1], g.y);
+      v[4 * j + 2] = __fmul_rn(v[4 * j + 2], g.z);
+      v[4 * j + 3] = __fmul_rn(v[4 * j + 3], g.w);
+    }
+    // every staged value is in registers, and every thread has left the
+    // previous row's reads of buf
+    __syncthreads();
+    if (tid == 0 && row + gridDim.x < a.rows)
+      bulk_load(stage, a.x + (row + gridDim.x) * N, S::STAGE * 4, &bar);
+
+    fwht_low(v, lane);
+    to_b<T>(v, buf, a0);
+    fwht_high<LOG2N>(v, a.inv_sqrt_n);
+    unsigned m = 0;
+#pragma unroll
+    for (int r = 0; r < kRowV; ++r) {
+      const unsigned b = __float_as_uint(fabsf(v[r]));
+      m = b > m ? b : m;
+    }
+    m = __reduce_max_sync(ndsc::kFullMask, m);
+    if (lane == 0) atomicMax(&row_max, m);
+    __syncthreads();                 // also: every thread has read buf
+    const float scale = __uint_as_float(row_max);
+    to_a<T>(v, buf, a0);
+    if (tid == 0) row_max = 0;       // every thread has read it (to_a's sync)
+
+    if (a.dither != nullptr) {
+      const float* dr = a.dither + row * N;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 d = *reinterpret_cast<const float4*>(dr + a0 + 128 * j);
+        v[4 * j] = __fadd_rn(v[4 * j], __fmul_rn(d.x, scale));
+        v[4 * j + 1] = __fadd_rn(v[4 * j + 1], __fmul_rn(d.y, scale));
+        v[4 * j + 2] = __fadd_rn(v[4 * j + 2], __fmul_rn(d.z, scale));
+        v[4 * j + 3] = __fadd_rn(v[4 * j + 3], __fmul_rn(d.w, scale));
+      }
+    }
+    float mk = 1.0f;
+    float s_out = scale;
+    if (a.mask != nullptr) {
+      mk = a.mask[row];
+      s_out = __fmul_rn(scale, mk);
+    }
+    if (tid == 0) a.scale_out[row] = s_out;
+
+    const float denom = fmaxf(scale, FLT_MIN);
+    const unsigned mw = static_cast<unsigned>(static_cast<int32_t>(mk));
+    unsigned w[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      unsigned x = 0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        x |= ndsc::quantize_code(v[4 * j + c], denom, BITS)
+             << (shift0 + c * BITS);
+      // the G lanes of a word hold disjoint bit fields: OR them together,
+      // so that every one of them holds the whole word
+#pragma unroll
+      for (int o = 1; o < G; o <<= 1)
+        x |= __shfl_xor_sync(ndsc::kFullMask, x, o);
+      if (a.mask != nullptr) x *= mw;   // the int32 product, wrapping
+      w[j] = x;
+    }
+    if (lane % G == 0) {
+      int32_t* wr = a.words + row * WPR;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        wr[(a0 + 128 * j) / K] = static_cast<int32_t>(w[j]);
+    }
+    if (a.residual == nullptr) continue;      // uniform across the grid
+
+    // decode the lane's own codes from the masked words
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const unsigned idx = (w[j] >> (shift0 + c * BITS)) & kCodeMask;
+        float xh = ndsc::dequant(idx, inv_levels, s_out);
+        if (a.mask != nullptr) {
+          xh = __fmul_rn(xh, mk);
+          if (a.has_rescale) xh = __fdiv_rn(xh, a.rescale);
+        }
+        v[4 * j + c] = xh;
+      }
+    }
+    __syncthreads();                 // every thread has read to_a's buf
+    fwht_low(v, lane);
+    to_b<T>(v, buf, a0);
+    // u again, for the residual in layout B: one bulk copy into buf, in
+    // flight while the top stages run (read per value from global memory
+    // instead, encode_ef took 7.2 ms against 3.7 on chip_smoke 3f's tree at
+    // 2^14 on an H100 80GB HBM3 at 700 W, PERF.md)
+    __syncthreads();                 // every thread has read buf
+    if (tid == 0) bulk_load(buf, xr, N * 4, &bar_u);
+    fwht_high<LOG2N>(v, a.inv_sqrt_n);
+    mbar_wait(&bar_u, parity_u);
+    parity_u ^= 1u;
+    float* rr = a.residual + row * N;
+#pragma unroll
+    for (int r = 0; r < kRowV; ++r) {
+      const int p = tid + T * r;
+      float y = __fmul_rn(v[r], a.signs[p]);
+      if (a.residual_bf16) y = __bfloat162float(__float2bfloat16_rn(y));
+      rr[p] = __fsub_rn(buf[p], y);
+    }
+    // the next row writes buf only after its first __syncthreads
+  }
+}
+
+template <int LOG2N, int BITS>
+int launch_row_bits(const EncodeArgs& a, cudaStream_t stream) {
+  using S = RowShape<LOG2N>;
+  static ndsc::LaunchCache cache;
+  int fit = 0;
+  const cudaError_t rc = ndsc::persistent_blocks(
+      encode_row_kernel<LOG2N, BITS>, S::T, S::SMEM, &cache, &fit);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const unsigned blocks =
+      static_cast<unsigned>(a.rows < fit ? a.rows : fit);
+  encode_row_kernel<LOG2N, BITS><<<blocks, S::T, S::SMEM, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LOG2N>
+int launch_row(const EncodeArgs& a, int bits, cudaStream_t stream) {
+  switch (bits) {
+    case 1: return launch_row_bits<LOG2N, 1>(a, stream);
+    case 2: return launch_row_bits<LOG2N, 2>(a, stream);
+    case 4: return launch_row_bits<LOG2N, 4>(a, stream);
+    default: return launch_row_bits<LOG2N, 8>(a, stream);
+  }
+}
+
 }  // namespace
 
 // x, dither, residual: (rows, n) float32; signs: (n,) float32; mask,
-// scale_out: (rows,) float32; words: (rows, n*bits/32) int32. dither, mask
-// and residual may be null; x, signs, dither and residual are 16-byte
-// aligned. Returns cudaGetLastError().
+// scale_out: (rows,) float32; words: (rows, n*bits/32) int32; n a power of
+// two in [32, 8192] or 2^14 or 2^15. dither, mask and residual may be null;
+// x, signs, dither and residual are 16-byte aligned. Returns
+// cudaGetLastError() (or the error of the shared-memory opt-in).
 extern "C" int ndsc_encode(const float* x, const float* signs,
                            const float* dither, const float* mask,
                            int32_t* words, float* scale_out, float* residual,
@@ -292,12 +665,15 @@ extern "C" int ndsc_encode(const float* x, const float* signs,
                            cudaStream_t stream) {
   if (bits != 1 && bits != 2 && bits != 4 && bits != 8)
     return cudaErrorInvalidValue;
-  if (!ndsc::is_pow2(n) || n < 32 || n > ndsc::kMaxN)
+  if (!ndsc::is_pow2(n) || n < 32 || n > kRowMaxN ||
+      (n > ndsc::kMaxN && n < kRowMinN))
     return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
   const EncodeArgs a{x, signs, dither, mask, words, scale_out, residual,
                      rows, ndsc::log2_int(n), inv_sqrt_n, has_rescale,
                      rescale, residual_bf16};
+  if (n == kRowMinN) return launch_row<14>(a, bits, stream);
+  if (n == kRowMaxN) return launch_row<15>(a, bits, stream);
   if (n <= ndsc::kWarpMaxN) {
     switch (ndsc::warp_values(n)) {
       case 4: return launch_warp<4>(a, bits, stream);

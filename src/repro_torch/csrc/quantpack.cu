@@ -9,7 +9,7 @@
 // _unpackdequant_kernel). Called through repro_torch.kernels.ops:
 // quantize_pack from the KV-cache encode (models/kvquant.encode_entry) and
 // RATQ, unpack_dequant in every NDSC decode; both also inside the encoders
-// above N = 8192 (kernels/quantencode.py).
+// from N = 2^16 (kernels/quantencode.py).
 //
 // Bound on an H100: bytes. Pack reads 4 B of f32 per coordinate (plus one
 // scale per row) and writes R/8 B; unpack the reverse. Each does a handful
@@ -26,7 +26,7 @@
 // no division. The optional dither (x + d * scale, as __fadd_rn(x,
 // __fmul_rn(d, scale))), row mask (masked rows emit zero words) and masked
 // scale output (scale * mask) make the same kernel the tail of the encoders
-// above N = 8192 (quantencode.py). Other widths take a row kernel: one
+// from N = 2^16 (quantencode.py). Other widths take a row kernel: one
 // thread per output word, its row by a division (no dither or mask).
 // The first design (one thread per word everywhere, k scalar loads of
 // neighbouring floats, so a warp's loads touched up to 32 lines at once,

@@ -1,6 +1,7 @@
 """Kernel-vs-plain checks of the codec and serving kernels, and the sweep
-grids (the codec grid below and above N = 8192, where the FWHT and the
-encoders run as passes).
+grids (the codec grid below and above N = 8192, where the FWHT runs as
+passes and the encoders as their row kernel up to 2^15, as passes
+beyond).
 
 `chip_smoke.py` and `tests/test_torch_cuda.py` hold the CUDA kernels
 against their plain versions with these same inputs and grids. On a CPU
@@ -25,10 +26,16 @@ FWHT_SMALL_N = (1, 2, 4, 8, 16)
 # rows that leave a warp item or a block partly filled
 CODEC_ROWS = (1, 37, 1031)
 CODEC_MODES = ("det", "dither", "mask", "rescale")
-# N of the FWHT's passes and the encoders above 8192: two passes with a
-# last pass of one and two stages, and 2^20 (13 + 7), at rows LARGE_ROWS
+# N above 8192: the FWHT's passes (two with a last pass of one and two
+# stages, and 2^20: 13 + 7) and the encoders' row kernel at 2^14 and 2^15
+# (their passes at 2^20), at rows LARGE_ROWS
 LARGE_N = (16384, 32768, 2 ** 20)
 LARGE_ROWS = (1, 37)
+# the encoders alone on their row kernel at more rows than the card has SMs
+# (132 on an H100), so that each persistent block strides over rows and
+# its staged copy of the next row is used
+ROW_N = (16384, 32768)
+ROW_ROWS = (300,)
 # the FWHT alone on one row of the dsc codec's largest frames (yi-6b's
 # leaves): 2^23 (two passes), 2^26 and 2^28 (three)
 FWHT_HUGE_N = (2 ** 23, 2 ** 26, 2 ** 28)
@@ -102,6 +109,19 @@ def check_codec(n, bits, mode, rows, dev) -> None:
     FWHT bitwise with their plain versions; mode is one of CODEC_MODES
     ("rescale": dither, mask and rescale 0.6, the dithered unbiased path).
     In "det" mode also from unaligned inputs."""
+    x, rw, rs = check_encoders(n, bits, mode, rows, dev)
+    what = f"bits={bits} n={n} {mode} rows={rows}"
+    if not torch.equal(ops.unpack_dequant(rw, rs, bits, n),
+                       ref.unpack_dequant(rw, rs, bits, n)):
+        raise AssertionError(f"unpack_dequant differs: {what}")
+    if not torch.equal(ops.fwht(x), ref.fwht(x)):
+        raise AssertionError(f"fwht differs: {what}")
+
+
+def check_encoders(n, bits, mode, rows, dev) -> tuple:
+    """check_codec's encoders alone: encode and encode_ef (f32 and bf16
+    residuals) bitwise, in "det" mode also from unaligned inputs. Returns
+    (x, words, scale) of the plain encode."""
     x, signs, dither, mask = codec_inputs(rows, n, bits, n + bits + rows,
                                           dev)
     d = dither if mode in ("dither", "rescale") else None
@@ -125,11 +145,7 @@ def check_codec(n, bits, mode, rows, dev) -> None:
                                          rescale=rescale, residual_dtype=rdt)
             if not (torch.equal(kw2, rw) and same(ks2, rs) and same(kr, rr)):
                 raise AssertionError(f"encode_ef differs: {what} {rdt}")
-    if not torch.equal(ops.unpack_dequant(rw, rs, bits, n),
-                       ref.unpack_dequant(rw, rs, bits, n)):
-        raise AssertionError(f"unpack_dequant differs: {what}")
-    if not torch.equal(ops.fwht(x), ref.fwht(x)):
-        raise AssertionError(f"fwht differs: {what}")
+    return x, rw, rs
 
 
 def check_unpack(bits, n, full_n, rows, dev) -> None:

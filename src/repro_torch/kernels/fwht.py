@@ -5,8 +5,9 @@ radix-2 butterfly order of `ref.fwht` and its single final multiply, so its
 output is bitwise equal to the plain version, for every power of two N.
 Up to `SINGLE_MAX_N` = 8192 one launch does the whole transform; above it
 the stages run in passes, as `fwht_plan` lays them out (`fwht_path`), and
-`run_passes` launches them. The encoders above 8192 (`quantencode.py`)
-run the same passes with their own per-value steps folded in.
+`run_passes` launches them. The encoders from N = 2^16 (`quantencode.py`,
+route "passes") run the same passes with their own per-value steps folded
+in; at 2^14 and 2^15 they run one kernel of their own and no pass.
 
 The serve path calls it on a few hundred rows at a time, where the host's
 work per call is most of its time, so the launch path keeps that work

@@ -1,21 +1,29 @@
-"""CUDA kernels: the NDSC encoder (`csrc/quantencode.cu`, and above
-N = 8192 a sequence of passes).
+"""CUDA kernels: the NDSC encoder (`csrc/quantencode.cu`, and from
+N = 2^16 a sequence of passes).
 
 Counterpart of `repro.kernels.quantencode.encode_pallas` and
 `encode_ef_pallas`: sign flip → FWHT → ℓ∞ scale → (dither) → quantize →
 int32 pack → (row mask), and for `encode_ef` the decode of its own payload
-and the residual u − D(E(u)). Up to N = 8192 both wrappers launch the one
-fused kernel of `quantencode.cu`; above it (`encode_path`) they launch
-hand-written passes: the FWHT's passes (`fwht.run_passes`) with the signs
-folded into the first one's loads and the row maximum into the last one's
-stores, then the flat quantize_pack kernel with the dither and the mask,
-and for `encode_ef` the flat unpack_dequant kernel and the FWHT's passes
-again with the mask and rescale folded into the first loads and the
-signs, the `residual_dtype` rounding and the subtract into the last
-stores. Each wrapper counts one launch per call under its own name. The
-payload (words, scale) is bitwise equal to `ref.encode`; the residual to
-`ref.encode_ef` as well, since every float step is a round-to-nearest
-intrinsic.
+and the residual u − D(E(u)). `encode_path` picks one of three routes by N:
+- "fused", 32 ≤ N ≤ 8192: the warp-resident kernel (N ≤ 1024) or the
+  shared-memory one of `quantencode.cu`, one launch;
+- "row", N = 2^14 and 2^15: `encode_row_kernel`, one launch, persistent
+  blocks over rows with 32 values a thread in registers and shared memory
+  only for the loads and the exchanges between a load layout and a
+  strided one (the header of `quantencode.cu` has the design and its
+  register and shared-memory budget per N);
+- "passes", N ≥ 2^16: the FWHT's passes (`fwht.run_passes`) with the signs
+  folded into the first one's loads and the row maximum into the last
+  one's stores, then the flat quantize_pack kernel with the dither and
+  the mask, and for `encode_ef` the flat unpack_dequant kernel and the
+  FWHT's passes again with the mask and rescale folded into the first
+  loads and the signs, the `residual_dtype` rounding and the subtract
+  into the last stores.
+The route follows from the shape alone: a launch that fails raises, and
+no other route is tried. Each wrapper counts one launch per call under
+its own name. The payload (words, scale) is bitwise equal to
+`ref.encode`; the residual to `ref.encode_ef` as well, since every float
+step is a round-to-nearest intrinsic.
 
 The dither and the keep mask are drawn outside the kernel (in
 `dist.gradcomp`) and passed in, so a kernel can never change a payload.
@@ -33,15 +41,19 @@ from repro_torch.kernels.fwht import (SINGLE_MAX_N, _check_cuda_f32, _ptr,
 from repro_torch.kernels.quantpack import _quantize_pack, _unpack_flat
 
 MIN_N = 32
+# the largest N of encode_row_kernel (its smallest is 2 · SINGLE_MAX_N)
+ROW_MAX_N = 1 << 15
 
 
 def encode_path(n: int) -> str:
-    """"fused" (the one kernel of quantencode.cu) for 32 ≤ N ≤ 8192,
-    "passes" above; N must be a power of two."""
+    """"fused" for 32 ≤ N ≤ 8192, "row" for 2^14 and 2^15 (each one kernel
+    of quantencode.cu), "passes" from 2^16; N must be a power of two."""
     if n & (n - 1) or n < MIN_N:
         raise ValueError(
             f"CUDA encode needs a power-of-2 N ≥ {MIN_N}, got {n}")
-    return "fused" if n <= SINGLE_MAX_N else "passes"
+    if n <= SINGLE_MAX_N:
+        return "fused"
+    return "row" if n <= ROW_MAX_N else "passes"
 
 
 @functools.cache
@@ -97,7 +109,7 @@ def _launch(chunks, signs, bits, dither, mask, rescale, residual_dtype,
 
 def _passes(chunks, signs, bits, dither, mask, rescale, bf16: bool, words,
             scale, resid) -> None:
-    """The encoder above N = 8192 into words, scale (and resid). Scratch:
+    """The encoder from N = 2^16 into words, scale (and resid). Scratch:
     the embedded rows e (reused for the EF decode) and the unmasked row
     maxima."""
     n = chunks.shape[-1]

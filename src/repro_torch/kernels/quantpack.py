@@ -6,7 +6,7 @@ Counterparts of `repro.kernels.quantpack.quantize_pack_pallas` and
 `ref.unpack_dequant`. `quantize_pack` has no cap on N (the TPU kernel has
 none either); N must be a multiple of 32/bits. Both stream their rows as
 one flat sequence of float4s where wpr is a power of two (`pack_path`,
-`unpack_path`), other rows row by row. The encoders above N = 8192
+`unpack_path`), other rows row by row. The encoders from N = 2^16
 (`quantencode.py`) run the same two kernels, quantize_pack with a dither
 and a row mask, without counting their launches here.
 

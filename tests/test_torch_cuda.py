@@ -9,7 +9,9 @@ machine without them (the repo's conftest imports JAX; skip it there):
 Payloads (words, scale bits), the EF residual in f32 and bf16, the FWHT,
 unpack_dequant (also on whole-range words, unaligned, trimmed) and
 quantize_pack must be bitwise equal to the plain versions, below and above
-N = 8192 (the passes, up to one row of 2^28); the KV-cache
+N = 8192 (the FWHT's passes up to one row of 2^28; the encoders' row
+kernel at 2^14 and 2^15, also over more rows than SMs; their passes
+beyond); the KV-cache
 decode attention within rtol = atol = 2e-4, the bound the JAX package
 holds its Pallas kernel to (exponentials and sums run in another
 order). The codecs' paths (RATQ's rung, `ops.rotate`, lane-stacked
@@ -127,9 +129,10 @@ def test_cuda_quantize_pack_matches_plain(cuda, bits, n):
 @pytest.mark.parametrize("n", C.LARGE_N)
 @pytest.mark.parametrize("mode", C.CODEC_MODES)
 def test_cuda_large_n_kernels_match_plain(cuda, bits, n, mode, rows):
-    """Above N = 8192: the FWHT's passes and the encoders' passes (encode,
-    encode_ef with f32 and bf16 residuals) bitwise, with the check_codec
-    grid's special rows; in det mode also from unaligned inputs."""
+    """Above N = 8192: the FWHT's passes and the encoders (encode,
+    encode_ef with f32 and bf16 residuals; the row kernel at 2^14 and
+    2^15, the passes at 2^20) bitwise, with the check_codec grid's special
+    rows; in det mode also from unaligned inputs."""
     C.check_codec(n, bits, mode, rows, cuda)
     torch.cuda.synchronize()
 
@@ -139,6 +142,22 @@ def test_cuda_large_n_kernels_match_plain(cuda, bits, n, mode, rows):
 @pytest.mark.parametrize("n", C.LARGE_N)
 def test_cuda_large_n_fwht_matches_plain(cuda, n, rows):
     C.check_fwht(n, rows, cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", C.ROW_ROWS)
+@pytest.mark.parametrize("bits", C.BITS)
+@pytest.mark.parametrize("n", C.ROW_N)
+@pytest.mark.parametrize("mode", C.CODEC_MODES)
+def test_cuda_large_n_row_encoders_stride_over_rows(cuda, bits, n, mode,
+                                                    rows):
+    """The encoders' row kernel at more rows than the card has SMs, so
+    each persistent block runs several rows with the next one staged:
+    encode and encode_ef (f32 and bf16 residuals) bitwise, with the
+    check_codec grid's special rows; in det mode also from unaligned
+    inputs."""
+    C.check_encoders(n, bits, mode, rows, cuda)
     torch.cuda.synchronize()
 
 

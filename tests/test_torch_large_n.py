@@ -6,15 +6,19 @@ JAX reference on the same numpy inputs.
 Above N = 8192 the card runs the FWHT as `fwht_plan`'s passes
 (`csrc/fwht.cu`, `ndsc_fwht_pass`): a pass of stages [s, s + k) owns tiles
 of 2^k values 2^s apart by W = 2^pass_cols(s, k) contiguous columns. The
-encoders run those passes with their per-value steps folded in, then the
-flat quantize_pack kernel with a dither and a row mask, and for the EF
-residual the flat unpack kernel and the passes again (`quantencode.py`).
-Every float step is one f32 rounding, so each model must be bitwise the
-plain version; so must the port's plain versions be the reference's, and
+encoders at N = 2^14 and 2^15 run one kernel (`encode_row_kernel` in
+`csrc/quantencode.cu`, route "row"): 32 values a thread in two layouts of
+the row, register and shuffle stages, shared-memory exchanges between the
+layouts, the pack by an OR-shuffle tree; from 2^16 they run those passes
+with their per-value steps folded in, then the flat quantize_pack kernel
+with a dither and a row mask, and for the EF residual the flat unpack
+kernel and the passes again (`quantencode.py`). Every float step is one
+f32 rounding, so each model must be bitwise the plain version; so must
+the port's plain versions be the reference's, and
 `repro_torch.dist.gradcomp` at chunk 16384 and the `dsc` codec on a leaf
-of N 32768 the reference's (payloads bitwise, ledger == audit). The wrapper
-checks that used to refuse N > 8192 on a CUDA tensor now choose the passes
-(tested here without a card)."""
+of N 32768 the reference's (payloads bitwise, ledger == audit). The
+wrapper checks that used to refuse N > 8192 on a CUDA tensor now choose
+a route (tested here without a card)."""
 import math
 
 import jax
@@ -155,7 +159,8 @@ def pack_flat_model(x, scale, bits, dither=None, mask=None):
 
 def encode_model(chunks, signs, bits, dither=None, mask=None, rescale=None,
                  residual_dtype=None):
-    """The encoder above 8192 as `quantencode._passes` launches it."""
+    """The encoder from 2^16 as `quantencode._passes` launches it (run here
+    at 16384, where the passes' index math is the same)."""
     e = passes_model(chunks, signs_in=signs)
     rowmax = e.abs().amax(-1, keepdim=True)         # max: any order, exact
     words, scale = pack_flat_model(e, rowmax, bits, dither, mask)
@@ -203,10 +208,14 @@ def test_passes_bitwise_plain_and_jax(log2n, rows):
 
 def test_cuda_paths_above_8192_do_not_refuse():
     """What the CUDA wrappers check before a launch: every power of two
-    takes a kernel (the passes above 8192), other N raise."""
+    takes a kernel (the FWHT's passes above 8192; the encoders' row kernel
+    at 2^14 and 2^15, their passes from 2^16), other N raise."""
     assert F.fwht_path(8192) == "single"
-    for log2n in (14, 15, 20, 23, 26, 28):
+    for log2n in (14, 15, 16, 20, 23, 26, 28):
         assert F.fwht_path(1 << log2n) == "passes"
+    for log2n in (14, 15):
+        assert encode_path(1 << log2n) == "row"
+    for log2n in (16, 17, 20, 23, 26, 28):
         assert encode_path(1 << log2n) == "passes"
     assert encode_path(32) == encode_path(8192) == "fused"
     for bad in (0, 3, 12288, (1 << 20) + 32):
@@ -347,3 +356,195 @@ def test_dsc_on_a_leaf_of_n_32768_bitwise_jax(budget):
     assert tc.wire_bits(tt) == jc.wire_bits(jt)
     if budget >= 1.0:
         assert tc.wire_bytes(tw, tm) == tc.wire_bits(tt) / 8
+
+
+# ---------------------------------------------------------------------------
+# the "row" route at 2^14 and 2^15: encode_row_kernel's schedule
+# ---------------------------------------------------------------------------
+ROW_V = 32                 # values a thread holds
+
+
+def row_layouts(n):
+    """encode_row_kernel's two layouts of a row of n, T = n/32 threads: the
+    position each thread's register holds. A[t, 4j + c] = 4·lane + 128·j +
+    1024·warp + c (loads, dither, pack, decode); B[t, r] = t + T·r (the
+    top stages, the row maximum, the residual)."""
+    t = torch.arange(n // ROW_V)
+    lane, warp = t & 31, t >> 5
+    i = torch.arange(ROW_V)
+    a = ((i & 3)[None] + 4 * lane[:, None] + 128 * (i >> 2)[None]
+         + 1024 * warp[:, None])
+    b = t[:, None] + (n // ROW_V) * i[None]
+    return a, b
+
+
+def _reg_stage(v, pos, h, done):
+    """Butterflies between registers i and i + h (i & h == 0) of every
+    thread; checks that they pair position p with p + 2^bit and records
+    the bit in `done`."""
+    i = torch.tensor([i for i in range(ROW_V) if not i & h])
+    bit = int(pos[0, i[0] + h] - pos[0, i[0]])
+    assert bit & (bit - 1) == 0 and torch.equal(pos[:, i + h], pos[:, i] + bit)
+    done.append(bit)
+    lo, hi = v[..., i], v[..., i + h]
+    v = v.clone()
+    v[..., i], v[..., i + h] = lo + hi, lo - hi
+    return v
+
+
+def _exchange(v, src, dst, n):
+    """Through the shared buffer: every thread stores its registers at the
+    positions `src` gives, then loads those `dst` gives."""
+    buf = torch.full((v.shape[0], n), float("nan"))
+    buf[:, src] = v
+    return buf[:, dst]
+
+
+def row_fwht_model(v, n, done):
+    """fwht_low in layout A (register stages for bits 0-1, one shuffle and
+    one p + v·(±1) per value for bits 2-6, register stages for bits 7-9),
+    the exchange to layout B, fwht_high (bits 10..log2 n − 1) and the one
+    multiply by f32(1/√n). v: (rows, T, 32) in layout A; returns layout B.
+    The position bits of the stages, in order, are appended to `done`."""
+    a, b = row_layouts(n)
+    tid = torch.arange(n // ROW_V)
+    for h in (1, 2):
+        v = _reg_stage(v, a, h, done)
+    for o in (1, 2, 4, 8, 16):
+        partner = tid ^ o                  # __shfl_xor_sync(…, o)
+        assert torch.equal(a[partner], a ^ (4 * o))
+        done.append(4 * o)
+        sgn = torch.where(tid & o != 0, -1.0, 1.0)[:, None]
+        v = v[:, partner] + v * sgn       # fma(v, ±1, p): one rounding
+    for h in (4, 8, 16):
+        v = _reg_stage(v, a, h, done)
+    v = _exchange(v, a, b, n)
+    log2t = (n // ROW_V).bit_length() - 1
+    for q in range(10 - log2t, 5):
+        v = _reg_stage(v, b, 1 << q, done)
+    return v * torch.tensor(F.inv_sqrt(n), dtype=torch.float32)
+
+
+def row_encode_model(chunks, signs, bits, dither=None, mask=None,
+                     rescale=None, residual_dtype=None):
+    """encode_row_kernel on each row: the load in layout A, × signs, the
+    FWHT, the row maximum (exact in any order), the exchange back to A,
+    the dither, each lane's codes at their bit offsets, the OR-shuffle tree
+    over the k/4 lanes of a word, the mask, the store by the first lane;
+    for the residual the decode of each lane's codes from its masked word,
+    the FWHT again and u − y in layout B (u loaded again)."""
+    rows, n = chunks.shape
+    a, b = row_layouts(n)
+    tid = torch.arange(n // ROW_V)
+    k = 32 // bits
+    v = row_fwht_model(chunks[:, a] * signs[a], n, [])
+    scale = v.abs().amax((1, 2))[:, None, None]
+    v = _exchange(v, b, a, n)
+    if dither is not None:
+        v = v + dither[:, a] * scale
+    code = quantize_code(v, torch.clamp_min(scale, TINY), bits)
+    shift = ((4 * tid) % k * bits)[:, None] + (torch.arange(ROW_V) & 3) * bits
+    fields = (code << shift).reshape(rows, -1, 8, 4)
+    w = fields[..., 0] | fields[..., 1] | fields[..., 2] | fields[..., 3]
+    o = 1
+    while o < k // 4:                     # the OR-shuffle tree
+        w = w | w[:, tid ^ o]
+        o <<= 1
+    mk = (torch.ones(rows, 1, 1) if mask is None
+          else mask.reshape(rows, 1, 1))
+    s_out = scale * mk if mask is not None else scale
+    if mask is not None:
+        w = w * mk.to(torch.int64)        # the int32 product, wrapping
+    first = tid % (k // 4) == 0
+    slot = a[first][:, ::4] // k          # the word each first lane stores
+    assert torch.equal(slot.reshape(-1).sort().values,
+                       torch.arange(n // k))
+    words = torch.empty(rows, n // k, dtype=torch.int64)
+    words[:, slot] = w[:, first]
+    words = tref.to_int32(words & 0xFFFFFFFF)
+    if residual_dtype is None:
+        return words, s_out.reshape(rows, 1)
+    idx = (w.repeat_interleave(4, dim=-1) >> shift) & (2 ** bits - 1)
+    xh = (-1.0 + (2.0 * idx.to(torch.float32) + 1.0) * 2.0 ** -bits) * s_out
+    if mask is not None:
+        xh = xh * mk
+        if rescale is not None:
+            xh = xh / torch.tensor(rescale, dtype=torch.float32)
+    y = row_fwht_model(xh, n, []) * signs[b]
+    y = y.to(residual_dtype).to(torch.float32)
+    resid = torch.empty_like(chunks)
+    resid[:, b] = chunks[:, b] - y
+    return words, s_out.reshape(rows, 1), resid
+
+
+@pytest.fixture
+def one_thread():
+    """The row model is hundreds of small ops; where several test workers
+    share the cores, each op's OpenMP threads spin against the others' and
+    a case slows a hundredfold, so it runs on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("log2n", [14, 15])
+def test_row_layouts_cover_the_row_and_keep_the_stage_order(log2n,
+                                                            one_thread):
+    """Each layout holds every position once; the stages run position bits
+    0..log2 n − 1 once each in increasing order (ref.fwht's); the
+    exchange's float4 stores and scalar loads touch consecutive addresses
+    across a warp (no bank conflicts); the staged warps (the TMA copy of the
+    row's first half) hold exactly the positions below n/2."""
+    n = 1 << log2n
+    a, b = row_layouts(n)
+    for lay in (a, b):
+        assert torch.equal(lay.reshape(-1).sort().values, torch.arange(n))
+    done = []
+    row_fwht_model(torch.zeros(1, n // ROW_V, ROW_V), n, done)
+    assert done == [1 << q for q in range(log2n)]
+    warps = a.reshape(-1, 32, ROW_V)
+    assert torch.equal(warps[:, 1:, ::4] - warps[:, :-1, ::4],
+                       torch.full_like(warps[:, 1:, ::4], 4))
+    assert torch.equal(b[1:] - b[:-1], torch.ones_like(b[1:]))
+    staged = (a[:, 0] < n // 2).reshape(-1, 32)
+    assert bool((staged.all(1) | ~staged.any(1)).all())   # whole warps
+    assert torch.equal(a[staged.reshape(-1)].reshape(-1).sort().values,
+                       torch.arange(n // 2))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("log2n", [14, 15])
+def test_row_route_model_bitwise_plain_and_jax(log2n, bits, mode,
+                                               one_thread):
+    """encode_row_kernel's model against ref.encode / ref.encode_ef and
+    the reference's encode_ef (f32 and bf16 residuals; its words and scale
+    are its encode's), on 3 rows (the middle one zero but for a spike in
+    its last value; the last one masked)."""
+    n = 1 << log2n
+    x, signs, dither, mask = _inputs(3, n, bits, log2n * 100 + bits * 10
+                                     + len(mode))
+    d, m, rescale = _mode(mode, dither, mask)
+    t = [None if v is None else torch.from_numpy(v)
+         for v in (x, signs, d, m)]
+    j = [None if v is None else jnp.asarray(v) for v in (x, signs, d, m)]
+    tw, ts = tref.encode(t[0], t[1], bits, dither=t[2], mask=t[3])
+    mw, ms = row_encode_model(t[0], t[1], bits, t[2], t[3])
+    assert torch.equal(mw, tw) and torch.equal(ms.view(torch.int32),
+                                               ts.view(torch.int32))
+    for tdt, jdt in ((torch.float32, jnp.float32),
+                     (torch.bfloat16, jnp.bfloat16)):
+        jw, js, jr = jref.encode_ef(j[0], j[1], bits, dither=j[2],
+                                    mask=j[3], rescale=rescale,
+                                    residual_dtype=jdt)
+        _, _, tr = tref.encode_ef(t[0], t[1], bits, dither=t[2], mask=t[3],
+                                  rescale=rescale, residual_dtype=tdt)
+        mw2, ms2, mr = row_encode_model(t[0], t[1], bits, t[2], t[3],
+                                        rescale, tdt)
+        for w in (tw, mw2):
+            np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+        for sc in (ts, ms2):
+            np.testing.assert_array_equal(_bits(sc), _bits(js))
+        np.testing.assert_array_equal(_bits(tr), _bits(jr))
+        np.testing.assert_array_equal(_bits(mr), _bits(jr))
