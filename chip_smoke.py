@@ -2054,6 +2054,7 @@ def time_quantize_pack_ratq(ops, ref, dev, cfg) -> dict:
 LARGE_LIB_SHAPES = ((16384, 4096), (32768, 2048))
 LARGE_CHUNK = 16384          # the codec chunk of phase 5b
 ROW_CHUNKS = (16384, 32768)  # 3f's encoder chunks: the encoders' row kernel
+PASS_CHUNK = 65536           # 3f's encoders on the FWHT's passes
 
 
 ROW_CALLS = 4                # 3f: the wrapper calls of one profiled window
@@ -2091,10 +2092,13 @@ def device_activities(fn, calls: int = ROW_CALLS, tries: int = 3) -> list:
 
 
 def time_large_fwht(ops, ref, dev) -> dict:
-    """3f: the FWHT's passes at LARGE_LIB_SHAPES (with x @ H) and on one
-    row of each checks.FWHT_HUGE_N (the dsc codec's frames of a full-width
-    yi-6b, 2^28 = 1 GiB): bitwise the plain version, timed (CUDA events,
-    medians of 5; plain of 3), with the bound and the pass count."""
+    """3f: the FWHT at LARGE_LIB_SHAPES (the row kernel, with x @ H) and on
+    one row of each checks.FWHT_HUGE_N (the passes, on the dsc codec's
+    frames of a full-width yi-6b, 2^28 = 1 GiB): bitwise the plain
+    version, timed (CUDA events, medians of 5; plain of 3), with the bound,
+    the pass count and the launches of one call; at LARGE_LIB_SHAPES the
+    device activities of ROW_CALLS calls, which must be one row kernel
+    each."""
     from repro_torch.kernels import checks
     from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import fwht as F
@@ -2104,33 +2108,95 @@ def time_large_fwht(ops, ref, dev) -> dict:
     shapes = list(LARGE_LIB_SHAPES) + [(n, 1) for n in checks.FWHT_HUGE_N]
     for n, rows in shapes:
         x = torch.randn(rows, n, generator=g, device=dev)
+        ops.reset_launch_counts()
         if not torch.equal(ops.fwht(x), ref.fwht(x)):
             raise AssertionError(f"fwht differs at ({rows}, {n})")
+        launches = ops.launch_counts()["fwht"]
         log2n = n.bit_length() - 1
         b, by = bound_ms(*kcost.fwht(x.numel(), n))
+        ms = timed(lambda: ops.fwht(x))
         r = {"shape": [rows, n], "passes": len(F.fwht_plan(log2n)),
-             "ms": timed(lambda: ops.fwht(x)),
+             "launches": launches, "ms": ms,
              "plain_ms": timed(lambda: ref.fwht(x), 3),
-             "bound_ms": b, "bound_by": by, "max_abs_err": 0.0,
-             "library_ms": "none (H does not fit)"}
+             "bound_ms": b, "bound_by": by, "share_of_bound": b / ms,
+             "max_abs_err": 0.0, "library_ms": "none (H does not fit)"}
         if (n, rows) in LARGE_LIB_SHAPES:
             h = ref.fwht(torch.eye(n, device=dev))               # dense H
             r["library_ms"] = timed(lambda: x @ h)
             del h
+            acts = device_activities(lambda: ops.fwht(x))
+            if not acts or len(acts) > ROW_CALLS or not all(
+                    "fwht_row_kernel" in a for a in acts):
+                raise AssertionError(f"3f: {ROW_CALLS} fwht calls at "
+                                     f"({rows}, {n}) ran {acts}, want one "
+                                     "row kernel each")
+            r["device_kernels_per_call"] = len(acts) / ROW_CALLS
         out[f"fwht/{rows}x2^{log2n}"] = r
         del x
         torch.cuda.empty_cache()
     return out
 
 
+def large_encoders_one_tensor(ops, ref, dev, cfg, chunk: int = PASS_CHUNK,
+                              plain: bool = True) -> dict:
+    """3f: encode_ef (EF, f32 residual) and encode (dither, keep-0.5 row
+    mask) on one tensor of `cfg`'s coordinates in rows of `chunk` (from
+    2^16 the FWHT's passes with the encoders' steps folded in): words,
+    scales and residual bitwise the plain version, the launches of one
+    call each, timed (CUDA events, medians of 5; plain of 3 where
+    `plain`) beside the bound."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.models import model as model_lib
+    shapes = tree_lib.leaves(model_lib.param_shapes(cfg),
+                             is_leaf=lambda s: isinstance(s, tuple))
+    coords = sum(math.prod(s) for s in shapes)
+    rows, bits = -(-coords // chunk), 4
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    u = torch.randn(rows, chunk, generator=g, device=dev) * 1e-3
+    s = torch.where(torch.rand(chunk, generator=g, device=dev) < 0.5,
+                    1.0, -1.0)
+    d = (torch.rand(u.shape, generator=g, device=dev) - 0.5) * 2.0 / 2 ** bits
+    m = (torch.rand(rows, 1, generator=g, device=dev) < 0.5).float()
+    calls = {"encode_ef": (lambda: ops.encode_ef(u, s, bits),
+                           lambda: ref.encode_ef(u, s, bits),
+                           kcost.encode_ef(rows * chunk, rows, chunk, bits)),
+             "encode": (lambda: ops.encode(u, s, bits, dither=d, mask=m),
+                        lambda: ref.encode(u, s, bits, dither=d, mask=m),
+                        kcost.encode(rows * chunk, rows, chunk, bits,
+                                     dither=True, mask=True))}
+    out = {"rows": rows, "chunk": chunk}
+    for name, (call, plain_call, cost) in calls.items():
+        ops.reset_launch_counts()
+        got = call()
+        launches = ops.launch_counts()[name]
+        want = plain_call()
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"3f: {name} differs at ({rows}, {chunk})")
+        del got, want
+        b, by = bound_ms(*cost)
+        ms = timed(call)
+        out[name] = {"launches": launches, "ms": ms,
+                     "plain_ms": timed(plain_call, 3) if plain
+                     else "not measured",
+                     "library_ms": None, "bound_ms": b, "bound_by": by,
+                     "share_of_bound": b / ms, "max_abs_err": 0.0}
+    del u, s, d, m, calls
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_large_encoders(ops, ref, dev, cfg, chunk: int = LARGE_CHUNK,
-                        plain: bool = True) -> dict:
+                        plain: bool = True, activities: bool = True) -> dict:
     """3f: encode_ef (EF, f32 residual) and encode (dither, keep-0.5 row
     mask) at `chunk` on `cfg`'s leaves (phase 5b's shapes at LARGE_CHUNK):
     each leaf's words, scales and residual bitwise the plain version; the
     tree timed (CUDA events, medians of 5; plain of 3 where `plain`) with
-    its bound, the share of it, its launches (one per leaf) and the device
-    activities of ROW_CALLS calls on the first leaf (torch.profiler)."""
+    its bound, the share of it, its launches (one per leaf) and, where
+    `activities`, the device activities of ROW_CALLS calls on the first
+    leaf (torch.profiler)."""
     from repro_torch import tree as tree_lib
     from repro_torch.dist import gradcomp as G
     from repro_torch.kernels import cost as kcost
@@ -2190,9 +2256,10 @@ def time_large_encoders(ops, ref, dev, cfg, chunk: int = LARGE_CHUNK,
             "launches_per_tree": launches[name], "ms": ms,
             "plain_ms": timed(plain_call, 3) if plain else "not measured",
             "library_ms": None, "bound_ms": b, "bound_by": by,
-            "share_of_bound": b / ms, "max_abs_err": 0.0,
-            f"device_activities_of_{ROW_CALLS}_calls":
-                device_activities(one_call)}
+            "share_of_bound": b / ms, "max_abs_err": 0.0}
+        if activities:
+            out[name][f"device_activities_of_{ROW_CALLS}_calls"] = \
+                device_activities(one_call)
     del leaves, draws, u, s, d, m, u0, s0, d0, m0, calls
     torch.cuda.empty_cache()
     return out
@@ -4394,6 +4461,9 @@ def main() -> int:
         log(json.dumps({"kernel": f"encoders/chunk {chunk}", **enc}))
         check_row_route(enc, chunk)
         large_encoders[f"chunk {chunk}"] = enc
+    enc = large_encoders_one_tensor(ops, ref, dev, cfg1)
+    log(json.dumps({"kernel": f"encoders/chunk {PASS_CHUNK}", **enc}))
+    large_encoders[f"chunk {PASS_CHUNK}"] = enc
     clock.done("3f FWHT and encoders above N = 8192")
 
     # -- 4. the main path: full-width yi-6b, 4 layers, launcher defaults -----
@@ -4607,6 +4677,22 @@ def main() -> int:
     names["encode/row"] = (names["encode"][0], names["encode"][1],
                            {"encode/row":
                             row["encode"]["launches_per_tree"]})
+    # the FWHT's row kernel at 2^14 (launched by 5b's decodes, timed at
+    # (4096, 2^14)) and its passes (3f's dsc frames, timed at 2^28); the
+    # encoders on the passes (3f at chunk 65536)
+    results["fwht/row"] = large_fwht[f"fwht/{LARGE_LIB_SHAPES[0][1]}x2^14"]
+    names["fwht/row"] = (names["fwht"][0], names["fwht"][1],
+                         {"fwht/row": train_chunk["launches"]["fwht"]})
+    huge = [r for r in large_fwht.values() if r["shape"][0] == 1]
+    results["fwht/passes"] = {**huge[-1], "library_ms": None}
+    names["fwht/passes"] = (names["fwht"][0], names["fwht"][1],
+                            {"fwht/passes": sum(r["launches"]
+                                                for r in huge)})
+    for name in ("encode_ef", "encode"):
+        results[f"{name}/passes"] = large_encoders[f"chunk {PASS_CHUNK}"][
+            name]
+        names[f"{name}/passes"] = (names["fwht"][0], names[name][1], {
+            f"{name}/passes": results[f"{name}/passes"]["launches"]})
     kernels = []
     for name, (src, replaces, counts) in names.items():
         if not counts[name]:

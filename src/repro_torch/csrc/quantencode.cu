@@ -45,8 +45,9 @@
 // "row", n = 2^14 and 2^15 (kRowMinN..kRowMaxN): encode_row_kernel,
 // persistent blocks (two per SM at 2^14, one at 2^15) striding over rows,
 // T = n/32 threads (512 or 1024) with V = 32 values each in registers.
-// Shared memory serves only the exchanges between two layouts of the row
-// and the loads:
+// The layouts, the FWHT's schedule and the TMA helpers are row_fwht.cuh's,
+// shared with fwht.cu's row kernel. Shared memory serves only the
+// exchanges between two layouts of the row and the loads:
 //   A (loads, pack): thread (warp w, lane l) holds the float4 groups
 //     j = 0..7 at positions 4l + 128j + 1024w; register 4j + c is position
 //     4l + 128j + 1024w + c. Position bits 0-1 and 7-9 are register bits,
@@ -84,13 +85,14 @@
 // without) stall the whole SM; the shuffle stages and the quantizer's
 // division cost issue slots at both n.
 // n >= 2^16 does not come here: repro_torch/kernels/quantencode.py runs it
-// as passes, fwht.cu's ndsc_fwht_pass with the sign flip and the row
-// maximum folded in, then quantpack.cu's flat quantize kernel with the
-// dither and the mask (and for the residual its flat unpack kernel and
-// the passes again).
+// as passes, fwht.cu's ndsc_fwht_pass (its register-resident row and
+// column kernels) with the sign flip and the row maximum folded in, then
+// quantpack.cu's flat quantize kernel with the dither and the mask (and
+// for the residual its flat unpack kernel and the passes again).
 #include <cuda_bf16.h>
 
 #include "ndsc_common.cuh"
+#include "row_fwht.cuh"
 #include "warp_rows.cuh"
 
 namespace {
@@ -328,137 +330,17 @@ __global__ void encode_smem_kernel(const EncodeArgs a, int bits) {
 
 constexpr int kRowMinN = 1 << 14;
 constexpr int kRowMaxN = 1 << 15;
-constexpr int kRowV = 32;                 // values per thread
-
-__device__ inline uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ inline void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(1)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// One thread: a bulk copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from global src into shared dst, completing on `bar`.
-__device__ inline void bulk_load(float* dst, const float* src, int bytes,
-                                 uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ inline void butterfly(float& a, float& b) {
-  const float x = a;
-  a = __fadd_rn(x, b);
-  b = __fsub_rn(x, b);
-}
-
-// Position bits 0-9 of the row in layout A: register stages for bits 0-1
-// (register stride 1, 2), lane stages for bits 2-6, register stages for
-// bits 7-9 (register stride 4, 8, 16).
-__device__ inline void fwht_low(float (&v)[kRowV], int lane) {
-#pragma unroll
-  for (int h = 1; h <= 2; h <<= 1) {
-#pragma unroll
-    for (int i = 0; i < kRowV; ++i)
-      if ((i & h) == 0) butterfly(v[i], v[i + h]);
-  }
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    // the partner holds position ^ 4o; the lower keeps b + a, the upper
-    // a + (-b): one rounding each, as ref.fwht's pair
-    const float sgn = (lane & o) ? -1.0f : 1.0f;
-#pragma unroll
-    for (int i = 0; i < kRowV; ++i) {
-      const float p = __shfl_xor_sync(ndsc::kFullMask, v[i], o);
-      v[i] = __fmaf_rn(v[i], sgn, p);
-    }
-  }
-#pragma unroll
-  for (int h = 4; h < kRowV; h <<= 1) {
-#pragma unroll
-    for (int i = 0; i < kRowV; ++i)
-      if ((i & h) == 0) butterfly(v[i], v[i + h]);
-  }
-}
-
-// Position bits 10..LOG2N-1 in layout B (register bit q is position bit
-// LOG2N - 5 + q), then the single multiply by f32(1/sqrt(n)).
-template <int LOG2N>
-__device__ inline void fwht_high(float (&v)[kRowV], float inv_sqrt_n) {
-#pragma unroll
-  for (int h = 1 << (15 - LOG2N); h < kRowV; h <<= 1) {
-#pragma unroll
-    for (int i = 0; i < kRowV; ++i)
-      if ((i & h) == 0) butterfly(v[i], v[i + h]);
-  }
-#pragma unroll
-  for (int i = 0; i < kRowV; ++i) v[i] = __fmul_rn(v[i], inv_sqrt_n);
-}
-
-// Layout A -> B through buf (the caller synchronizes before buf is written
-// again).
-template <int T>
-__device__ inline void to_b(float (&v)[kRowV], float* buf, int a0) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    *reinterpret_cast<float4*>(buf + a0 + 128 * j) =
-        make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < kRowV; ++r) v[r] = buf[threadIdx.x + T * r];
-}
-
-// Layout B -> A through buf (the caller synchronizes before buf is written
-// again).
-template <int T>
-__device__ inline void to_a(float (&v)[kRowV], float* buf, int a0) {
-#pragma unroll
-  for (int r = 0; r < kRowV; ++r) buf[threadIdx.x + T * r] = v[r];
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float4 t = *reinterpret_cast<const float4*>(buf + a0 + 128 * j);
-    v[4 * j] = t.x;
-    v[4 * j + 1] = t.y;
-    v[4 * j + 2] = t.z;
-    v[4 * j + 3] = t.w;
-  }
-}
-
-template <int LOG2N>
-struct RowShape {
-  static constexpr int N = 1 << LOG2N;
-  static constexpr int T = N / kRowV;                   // 512 or 1024
-  static constexpr int STAGE = N / 2;     // the next row's first half
-  static constexpr int SMEM = (N + STAGE) * static_cast<int>(sizeof(float));
-  // blocks per SM: two of 96 KB at 2^14; at 2^15 the 192 KB leave no room
-  static constexpr int BLOCKS = LOG2N == 14 ? 2 : 1;
-};
+using ndsc::bulk_load;
+using ndsc::fwht_high;
+using ndsc::fwht_low;
+using ndsc::kRowV;
+using ndsc::load_a;
+using ndsc::mbar_init;
+using ndsc::mbar_wait;
+using ndsc::mul_a;
+using ndsc::RowShape;
+using ndsc::to_a;
+using ndsc::to_b;
 
 template <int LOG2N, int BITS>
 __global__ void __launch_bounds__(RowShape<LOG2N>::T,
@@ -498,29 +380,12 @@ __global__ void __launch_bounds__(RowShape<LOG2N>::T,
     float v[kRowV];
     if (staged) {
       mbar_wait(&bar, parity);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 t = *reinterpret_cast<const float4*>(stage + a0 + 128 * j);
-        v[4 * j] = t.x, v[4 * j + 1] = t.y, v[4 * j + 2] = t.z;
-        v[4 * j + 3] = t.w;
-      }
+      load_a(v, stage + a0);
     } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 t = *reinterpret_cast<const float4*>(xr + a0 + 128 * j);
-        v[4 * j] = t.x, v[4 * j + 1] = t.y, v[4 * j + 2] = t.z;
-        v[4 * j + 3] = t.w;
-      }
+      load_a(v, xr + a0);
     }
     parity ^= 1u;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 g = *reinterpret_cast<const float4*>(a.signs + a0 + 128 * j);
-      v[4 * j] = __fmul_rn(v[4 * j], g.x);
-      v[4 * j + 1] = __fmul_rn(v[4 * j + 1], g.y);
-      v[4 * j + 2] = __fmul_rn(v[4 * j + 2], g.z);
-      v[4 * j + 3] = __fmul_rn(v[4 * j + 3], g.w);
-    }
+    mul_a(v, a.signs + a0);
     // every staged value is in registers, and every thread has left the
     // previous row's reads of buf
     __syncthreads();
@@ -529,7 +394,8 @@ __global__ void __launch_bounds__(RowShape<LOG2N>::T,
 
     fwht_low(v, lane);
     to_b<T>(v, buf, a0);
-    fwht_high<LOG2N>(v, a.inv_sqrt_n);
+    fwht_high<LOG2N>(v);
+    ndsc::scale_values(v, a.inv_sqrt_n);
     unsigned m = 0;
 #pragma unroll
     for (int r = 0; r < kRowV; ++r) {
@@ -611,7 +477,8 @@ __global__ void __launch_bounds__(RowShape<LOG2N>::T,
     // 2^14 on an H100 80GB HBM3 at 700 W, PERF.md)
     __syncthreads();                 // every thread has read buf
     if (tid == 0) bulk_load(buf, xr, N * 4, &bar_u);
-    fwht_high<LOG2N>(v, a.inv_sqrt_n);
+    fwht_high<LOG2N>(v);
+    ndsc::scale_values(v, a.inv_sqrt_n);
     mbar_wait(&bar_u, parity_u);
     parity_u ^= 1u;
     float* rr = a.residual + row * N;

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fwht", "quantpack", "quantencode", "quantdecode")
-HEADERS = ("ndsc_common.cuh", "warp_rows.cuh")
+HEADERS = ("ndsc_common.cuh", "warp_rows.cuh", "row_fwht.cuh")
 # No --use_fast_math: the payload path relies on IEEE rounding.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -1,7 +1,6 @@
 """Kernel-vs-plain checks of the codec and serving kernels, and the sweep
-grids (the codec grid below and above N = 8192, where the FWHT runs as
-passes and the encoders as their row kernel up to 2^15, as passes
-beyond).
+grids (the codec grid below and above N = 8192, where the FWHT and the
+encoders run their row kernels up to 2^15 and passes beyond).
 
 `chip_smoke.py` and `tests/test_torch_cuda.py` hold the CUDA kernels
 against their plain versions with these same inputs and grids. On a CPU
@@ -26,18 +25,19 @@ FWHT_SMALL_N = (1, 2, 4, 8, 16)
 # rows that leave a warp item or a block partly filled
 CODEC_ROWS = (1, 37, 1031)
 CODEC_MODES = ("det", "dither", "mask", "rescale")
-# N above 8192: the FWHT's passes (two with a last pass of one and two
-# stages, and 2^20: 13 + 7) and the encoders' row kernel at 2^14 and 2^15
-# (their passes at 2^20), at rows LARGE_ROWS
-LARGE_N = (16384, 32768, 2 ** 20)
+# N above 8192: the FWHT's and the encoders' row kernels at 2^14 and 2^15;
+# from 2^16 their passes, every fold of them through the encoders (2^16,
+# 2^17: a last pass of one and two stages; 2^20: 15 + 5), at rows
+# LARGE_ROWS
+LARGE_N = (16384, 32768, 2 ** 16, 2 ** 17, 2 ** 20)
 LARGE_ROWS = (1, 37)
-# the encoders alone on their row kernel at more rows than the card has SMs
-# (132 on an H100), so that each persistent block strides over rows and
-# its staged copy of the next row is used
+# the row kernels (the FWHT's, and the encoders' alone) at more rows than
+# the card has SMs (132 on an H100), so that each persistent block strides
+# over rows and its staged copy of the next row is used
 ROW_N = (16384, 32768)
 ROW_ROWS = (300,)
 # the FWHT alone on one row of the dsc codec's largest frames (yi-6b's
-# leaves): 2^23 (two passes), 2^26 and 2^28 (three)
+# leaves): 2^23 (two passes: 15 + 8), 2^26 and 2^28 (three)
 FWHT_HUGE_N = (2 ** 23, 2 ** 26, 2 ** 28)
 PACK_N = (32, 128, 256, 8192, 12288)
 # quantize_pack rows: one, a block partly filled, several blocks

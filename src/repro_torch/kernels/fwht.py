@@ -3,11 +3,16 @@
 Counterpart of `repro.kernels.fwht.fwht_pallas`. The kernel keeps the
 radix-2 butterfly order of `ref.fwht` and its single final multiply, so its
 output is bitwise equal to the plain version, for every power of two N.
-Up to `SINGLE_MAX_N` = 8192 one launch does the whole transform; above it
-the stages run in passes, as `fwht_plan` lays them out (`fwht_path`), and
-`run_passes` launches them. The encoders from N = 2^16 (`quantencode.py`,
-route "passes") run the same passes with their own per-value steps folded
-in; at 2^14 and 2^15 they run one kernel of their own and no pass.
+`fwht_path` picks one of three routes by N: "single" up to `SINGLE_MAX_N`
+= 8192 (one launch of the warp-resident or shared-memory kernel); "row"
+at 2^14 and 2^15 (one launch of `fwht_row_kernel`: 32 values a thread in
+registers, shared memory only to change layout and to stage the next
+row); "passes" from 2^16, as `fwht_plan` lays them out (the row kernel on
+contiguous segments of 2^15, then `fwht_cols_kernel` passes of at most 8
+stages, again register-resident). `run_passes` launches the last two. The
+encoders from N = 2^16 (`quantencode.py`, route "passes") run the same
+passes with their own per-value steps folded in; at 2^14 and 2^15 they
+run one kernel of their own.
 
 The serve path calls it on a few hundred rows at a time, where the host's
 work per call is most of its time, so the launch path keeps that work
@@ -27,14 +32,14 @@ from repro_torch.kernels import _build
 
 # the largest N of the single-launch kernels; above it the passes run
 SINGLE_MAX_N = 8192
-# the first pass runs the stages h < 2^13 on contiguous blocks of 8192
-FIRST_PASS_STAGES = 13
-# a later pass runs at most 10 stages: a tile of 2^10 strided values by 32
-# contiguous columns, 128 KB of shared memory
-MAX_PASS_STAGES = 10
-# a later pass's tile holds at least 2^13 values: fewer stages, more columns
-MIN_TILE_LOG2 = 13
-MIN_COLS_LOG2 = 5         # 32 floats, a whole 128 B line
+# the largest N of the "row" route (one pass of fwht_row_kernel)
+ROW_MAX_N = 1 << 15
+# the first pass runs the stages h < 2^15 on contiguous segments of 2^15
+FIRST_PASS_STAGES = 15
+# a later pass's tile holds 2^13 values: 2^k strided rows by W = 2^(13-k)
+# contiguous columns; at most 8 stages keep W >= 32 floats (128 B lines)
+TILE_LOG2 = 13
+MAX_PASS_STAGES = 8
 
 
 def f32(v: float) -> float:
@@ -79,10 +84,11 @@ def _check_cuda_f32(name: str, t: torch.Tensor) -> None:
 
 
 def fwht_plan(log2n: int) -> list:
-    """The passes of the FWHT of N = 2^log2n as (first stage, stages): the
-    stages h = 2^s for s in [first, first + stages), in increasing order.
-    The first pass takes up to 13 stages; the rest are split as evenly as
-    possible into passes of at most 10 (2^28: 13, 8, 7)."""
+    """The passes of the FWHT of N = 2^log2n (N ≥ 2^14) as (first stage,
+    stages): the stages h = 2^s for s in [first, first + stages), in
+    increasing order. The first pass takes up to 15 stages; the rest are
+    split as evenly as possible into passes of at most 8 (2^28: 15, 7,
+    6)."""
     first = min(log2n, FIRST_PASS_STAGES)
     plan = [(0, first)]
     rest = log2n - first
@@ -98,20 +104,21 @@ def fwht_plan(log2n: int) -> list:
 
 
 def pass_cols(first: int, stages: int) -> int:
-    """log2 of a pass's tile width W: 1 column in the first pass (its
-    2^stages values are contiguous), else max(32, 2^13 / 2^stages), within
-    the 2^first contiguous values a stage-`first` pair spans."""
-    if first == 0:
-        return 0
-    return min(first, max(MIN_COLS_LOG2, MIN_TILE_LOG2 - stages))
+    """log2 of a pass's tile width W: 0 in the first pass (its segments
+    are contiguous), else 13 − stages (a tile of 2^13 values), within the
+    2^first contiguous values a stage-`first` pair spans."""
+    return 0 if first == 0 else TILE_LOG2 - stages
 
 
 def fwht_path(n: int) -> str:
-    """"single" (one launch of the whole transform) for N ≤ 8192, "passes"
-    above; N must be a power of two."""
+    """"single" (one launch of the whole transform) for N ≤ 8192, "row"
+    (one launch of the row kernel) for 2^14 and 2^15, "passes" above; N
+    must be a power of two."""
     if n < 1 or n & (n - 1):
         raise ValueError(f"CUDA FWHT needs a power-of-2 N, got {n}")
-    return "single" if n <= SINGLE_MAX_N else "passes"
+    if n <= SINGLE_MAX_N:
+        return "single"
+    return "row" if n <= ROW_MAX_N else "passes"
 
 
 def _ptr(t):
@@ -132,12 +139,12 @@ def _pass_kernel():
 def run_passes(src: torch.Tensor, work: torch.Tensor, out: torch.Tensor, *,
                signs_in=None, row_mul=None, rescale=None, signs_out=None,
                sub_from=None, rowmax=None, round_bf16: bool = False) -> None:
-    """The FWHT of src's rows (N > 8192) by `fwht_plan`'s passes: the first
-    reads src, the middle ones run in place on `work`, the last writes
-    `out` (work and out may be one tensor). Folded in: at the first pass's
-    loads × signs_in, × row_mul[row], ÷ rescale; at the last pass's stores
-    the row maximum of |y| into rowmax, × signs_out, the bf16 rounding
-    and sub_from − y. All tensors are contiguous f32 on one card, the
+    """The FWHT of src's rows (N > 8192) by `fwht_plan`'s passes (one at
+    2^14 and 2^15): the first reads src, the middle ones run in place on
+    `work`, the last writes `out` (work and out may be one tensor).
+    Folded in: at the first pass's loads × signs_in, × row_mul[row],
+    ÷ rescale; at the last pass's stores the row maximum of |y| into
+    rowmax, × signs_out, the bf16 rounding and sub_from − y. All tensors are contiguous f32 on one card, the
     (rows, N) ones and the signs 16-byte aligned; no launch is counted."""
     n = src.shape[-1]
     rows = src.numel() // n
@@ -161,7 +168,7 @@ def run_passes(src: torch.Tensor, work: torch.Tensor, out: torch.Tensor, *,
 
 def fwht_cuda(x: torch.Tensor) -> torch.Tensor:
     """Normalized FWHT along the last axis of a contiguous f32 CUDA tensor:
-    one launch up to N = 8192, `fwht_plan`'s passes above (counted as one
+    one launch up to N = 2^15, `fwht_plan`'s passes above (counted as one
     launch either way)."""
     _check_cuda_f32("x", x)
     n = x.shape[-1]

@@ -5,7 +5,7 @@ A CPU tensor runs the plain PyTorch version (`kernels.ref`), and so does a
 decode step on them, `repro_torch.launch.dryrun`); a CUDA tensor runs the
 hand-written kernel, or raises where the kernel refuses the input
 (a dtype it does not take, an N that is not a power of two). The FWHT and
-the encoders take every power-of-two N on the card: one launch up to 8192,
+the encoders take every power-of-two N on the card: one launch up to 2^15,
 hand-written passes above (`kernels.fwht.fwht_plan`). There is no switch
 and no fallback: unlike `repro.kernels.ops`, nothing here
 quietly swaps in the reference on the accelerator. All six TPU kernels have

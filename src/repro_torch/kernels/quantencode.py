@@ -11,7 +11,8 @@ and the residual u − D(E(u)). `encode_path` picks one of three routes by N:
   blocks over rows with 32 values a thread in registers and shared memory
   only for the loads and the exchanges between a load layout and a
   strided one (the header of `quantencode.cu` has the design and its
-  register and shared-memory budget per N);
+  register and shared-memory budget per N; the schedule is
+  `csrc/row_fwht.cuh`, shared with the FWHT's row kernel);
 - "passes", N ≥ 2^16: the FWHT's passes (`fwht.run_passes`) with the signs
   folded into the first one's loads and the row maximum into the last
   one's stores, then the flat quantize_pack kernel with the dither and
@@ -35,14 +36,13 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fwht import (SINGLE_MAX_N, _check_cuda_f32, _ptr,
-                                      _stream, aligned, call_on, f32,
-                                      inv_sqrt, run_passes)
+from repro_torch.kernels.fwht import (ROW_MAX_N, SINGLE_MAX_N,
+                                      _check_cuda_f32, _ptr, _stream,
+                                      aligned, call_on, f32, inv_sqrt,
+                                      run_passes)
 from repro_torch.kernels.quantpack import _quantize_pack, _unpack_flat
 
 MIN_N = 32
-# the largest N of encode_row_kernel (its smallest is 2 · SINGLE_MAX_N)
-ROW_MAX_N = 1 << 15
 
 
 def encode_path(n: int) -> str:

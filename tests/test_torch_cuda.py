@@ -9,9 +9,9 @@ machine without them (the repo's conftest imports JAX; skip it there):
 Payloads (words, scale bits), the EF residual in f32 and bf16, the FWHT,
 unpack_dequant (also on whole-range words, unaligned, trimmed) and
 quantize_pack must be bitwise equal to the plain versions, below and above
-N = 8192 (the FWHT's passes up to one row of 2^28; the encoders' row
-kernel at 2^14 and 2^15, also over more rows than SMs; their passes
-beyond); the KV-cache
+N = 8192 (the FWHT's and the encoders' row kernels at 2^14 and 2^15,
+also over more rows than SMs; their passes beyond, in every fold mode,
+and the FWHT's up to one row of 2^28); the KV-cache
 decode attention within rtol = atol = 2e-4, the bound the JAX package
 holds its Pallas kernel to (exponentials and sums run in another
 order). The codecs' paths (RATQ's rung, `ops.rotate`, lane-stacked
@@ -70,7 +70,8 @@ def test_cuda_launch_counts_and_refusals(cuda):
     x = torch.randn(4, 64, device=cuda)
     ops.unrotate(ops.fwht(x), torch.ones(64, device=cuda))
     assert ops.launch_counts()["fwht"] == 2
-    # above 8192 the passes run (one count per call), non-powers of 2 raise
+    # above 8192 the row kernel or the passes run (one count per call),
+    # non-powers of 2 raise
     assert ops.fwht(torch.zeros(2, 16384, device=cuda)).shape == (2, 16384)
     assert ops.launch_counts()["fwht"] == 3
     with pytest.raises(ValueError, match="power-of-2"):
@@ -158,6 +159,20 @@ def test_cuda_large_n_row_encoders_stride_over_rows(cuda, bits, n, mode,
     check_codec grid's special rows; in det mode also from unaligned
     inputs."""
     C.check_encoders(n, bits, mode, rows, cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", C.LARGE_ROWS + C.ROW_ROWS)
+@pytest.mark.parametrize("n", C.ROW_N)
+def test_cuda_large_n_fwht_row_route_strides_over_rows(cuda, n, rows):
+    """The FWHT's row kernel (one launch at 2^14 and 2^15) on one row,
+    on fewer rows than persistent blocks and on more, so that each block
+    strides over rows with the next one staged; aligned and unaligned
+    input, bitwise."""
+    from repro_torch.kernels import fwht as F
+    assert F.fwht_path(n) == "row"
+    C.check_fwht(n, rows, cuda)
     torch.cuda.synchronize()
 
 

@@ -4,21 +4,27 @@ modelled in torch in this file, against the port's plain versions and the
 JAX reference on the same numpy inputs.
 
 Above N = 8192 the card runs the FWHT as `fwht_plan`'s passes
-(`csrc/fwht.cu`, `ndsc_fwht_pass`): a pass of stages [s, s + k) owns tiles
-of 2^k values 2^s apart by W = 2^pass_cols(s, k) contiguous columns. The
-encoders at N = 2^14 and 2^15 run one kernel (`encode_row_kernel` in
-`csrc/quantencode.cu`, route "row"): 32 values a thread in two layouts of
-the row, register and shuffle stages, shared-memory exchanges between the
-layouts, the pack by an OR-shuffle tree; from 2^16 they run those passes
-with their per-value steps folded in, then the flat quantize_pack kernel
-with a dither and a row mask, and for the EF residual the flat unpack
-kernel and the passes again (`quantencode.py`). Every float step is one
-f32 rounding, so each model must be bitwise the plain version; so must
-the port's plain versions be the reference's, and
-`repro_torch.dist.gradcomp` at chunk 16384 and the `dsc` codec on a leaf
-of N 32768 the reference's (payloads bitwise, ledger == audit). The
-wrapper checks that used to refuse N > 8192 on a CUDA tensor now choose
-a route (tested here without a card)."""
+(`csrc/fwht.cu`, `ndsc_fwht_pass`; one pass, route "row", at 2^14 and
+2^15). The first pass is `fwht_row_kernel` on contiguous segments of 2^14
+or 2^15: 32 values a thread in two layouts of the segment, register and
+shuffle stages, one shared-memory exchange between the layouts
+(`csrc/row_fwht.cuh`, the schedule of the encoders' `encode_row_kernel`),
+the store from the second layout. A later pass of stages [s, s + k) is
+`fwht_cols_kernel<k>` on tiles of 2^13 values, 2^k rows 2^s apart by
+W = 2^(13−k) contiguous columns: 32 values a thread, min(k, 5) stages in
+registers, and for k > 5 one exchange into a second layout for the rest.
+The encoders at N = 2^14 and 2^15 run one kernel (`encode_row_kernel` in
+`csrc/quantencode.cu`, route "row"); from 2^16 they run those passes with
+their per-value steps folded in, then the flat quantize_pack kernel with a
+dither and a row mask, and for the EF residual the flat unpack kernel and
+the passes again (`quantencode.py`). Every float step is one f32
+rounding, so each model must be bitwise the plain version; so must the
+port's plain versions be the reference's, and `repro_torch.dist.gradcomp`
+at chunk 16384 and the `dsc` codec on a leaf of N 32768 the reference's
+(payloads bitwise, ledger == audit). The wrapper checks that used to
+refuse N > 8192 on a CUDA tensor now choose a route (tested here without a
+card)."""
+import functools
 import math
 
 import jax
@@ -26,9 +32,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from repro import codecs as jcodecs
 from repro.dist import gradcomp as JG
+from repro.kernels import fwht as jfwht
 from repro.kernels import ref as jref
 from repro_torch import codecs as tcodecs
 from repro_torch.dist import gradcomp as TG
@@ -70,56 +78,138 @@ def _mode(mode, dither, mask):
 # ---------------------------------------------------------------------------
 # kernel models
 # ---------------------------------------------------------------------------
-def pass_model(src, s, k, lw, *, last, signs_in=None, row_mul=None,
-               rescale=None):
-    """ndsc_fwht_pass without its store epilogue: tile t_id of the grid
-    gathers its 2^k·W values, runs stages s..s+k−1 on them in the kernel's
-    shared-memory layout and scatters them back. Returns (out, the flat
-    index of every tile element), for a coverage check."""
+def _finish(y, flat, n, signs_out=None, sub_from=None, round_bf16=False):
+    """The last pass's store epilogue (fwht.cu `finish`): × f32(1/√n),
+    × signs_out at the position, the bf16 rounding, sub_from − y. The
+    row maximum of |y| (before the signs) is exact in any order, so the
+    models take it from the stored FWHT where an encoder needs it."""
+    y = y * torch.tensor(F.inv_sqrt(n), dtype=torch.float32)
+    if signs_out is not None:
+        y = y * signs_out[flat % n]
+    if round_bf16:
+        y = y.to(torch.bfloat16).to(torch.float32)
+    if sub_from is not None:
+        y = sub_from.reshape(-1)[flat] - y
+    return y
+
+
+def row_pass_model(src, log2l, *, last, signs_in=None, row_mul=None,
+                   rescale=None, **store):
+    """fwht_row_kernel<log2l>: each contiguous segment of 2^log2l values
+    loaded in layout A (× signs_in at its positions, × row_mul[row],
+    ÷ rescale), `row_fwht_model`'s schedule, the store from layout B
+    (thread t writes t + T·r: each warp store 32 consecutive floats), with
+    the last pass's epilogue. Returns (out, the flat index of every value
+    stored), for a coverage check."""
     rows, n = src.shape
-    log2n = n.bit_length() - 1
-    w, tile = 1 << lw, 1 << (k + lw)
-    tiles_log = log2n - k - lw
-    t_id = torch.arange(rows << tiles_log, dtype=torch.int64)
-    row, in_row = t_id >> tiles_log, t_id & ((1 << tiles_log) - 1)
-    cb_log = s - lw
-    col0 = (((in_row >> cb_log) << (s + k))
-            + ((in_row & ((1 << cb_log) - 1)) << lw))
-    e = torch.arange(tile, dtype=torch.int64)
-    col = col0[:, None] + ((e >> lw) << s)[None] + (e & (w - 1))[None]
-    flat = row[:, None] * n + col
-    sm = src.reshape(-1)[flat]
+    seg_n = 1 << log2l
+    a, b = row_layouts(seg_n)
+    seg = torch.arange(rows * n // seg_n, dtype=torch.int64)
+    row, col = seg // (n // seg_n), (seg % (n // seg_n)) * seg_n
+    v = src.reshape(-1, seg_n)[:, a]
     if signs_in is not None:
-        sm = sm * signs_in[col]
+        v = v * signs_in[col[:, None, None] + a[None]]
     if row_mul is not None:
-        sm = sm * row_mul.reshape(-1)[row][:, None]
+        v = v * row_mul.reshape(-1)[row][:, None, None]
         if rescale is not None:
-            sm = sm / torch.tensor(rescale, dtype=torch.float32)
-    p = torch.arange(tile // 2, dtype=torch.int64)
-    for j in range(k):
-        q = p >> lw
-        t = ((q >> j) << (j + 1)) | (q & ((1 << j) - 1))
-        i = (t << lw) | (p & (w - 1))
-        a, b = sm[:, i], sm[:, i + (w << j)]
-        sm[:, i], sm[:, i + (w << j)] = a + b, a - b
+            v = v / torch.tensor(rescale, dtype=torch.float32)
+    v = row_fwht_model(v, seg_n, [], scale=False)
+    flat = (row * n + col)[:, None, None] + b[None]
     if last:
-        sm = sm * torch.tensor(F.inv_sqrt(n), dtype=torch.float32)
+        v = _finish(v, flat, n, **store)
     out = torch.empty_like(src)
-    out.reshape(-1)[flat] = sm
+    out.reshape(-1)[flat] = v
     return out, flat
 
 
-def passes_model(src, **first):
-    """`run_passes` without the last pass's store epilogue: `fwht_plan`'s
-    passes in order, the first with the given load steps."""
+COLS_TILE_LOG2 = 13        # fwht_cols_kernel's tile: 2^13 values
+COLS_THREADS = 256
+
+
+def cols_layouts(k):
+    """fwht_cols_kernel<k>'s two layouts of a tile of 2^13 values, 256
+    threads by 32 registers: the tile element (row e >> (13 − k), column
+    e & (W − 1)) each holds. L1 (loads, the first min(k, 5) stages):
+    registers are rows 0..4 (and below k = 5 columns 5..9 − k too), the
+    lane columns 0..4; L2 (k > 5: the other stages and the stores):
+    registers rows 5..k − 1 (low bits) and 0..9 − k, the lane columns
+    0..4. None for L2 where k ≤ 5."""
+    lw = COLS_TILE_LOG2 - k
+    t = torch.arange(COLS_THREADS)
+    lane, warp = t & 31, t >> 5
+    i = torch.arange(ROW_V)
+    kr = min(k, 5)
+    if k >= 5:
+        e1 = (lane + ((warp & ((1 << (8 - k)) - 1)) << 5)
+              + ((warp >> (8 - k)) << (lw + 5)))
+    else:
+        e1 = lane + (warp << (10 - k))
+    l1 = e1[:, None] + (((i & ((1 << kr) - 1)) << lw) + ((i >> kr) << 5))[None]
+    if k <= 5:
+        return l1, None
+    e2 = (lane + ((warp & ((1 << (8 - k)) - 1)) << 5)
+          + ((warp >> (8 - k)) << (lw + 10 - k)))
+    off2 = ((i >> (k - 5)) << lw) + ((i & ((1 << (k - 5)) - 1)) << (lw + 5))
+    return l1, e2[:, None] + off2[None]
+
+
+def cols_pass_model(src, s, k, *, last, done=None, **store):
+    """fwht_cols_kernel<k>, stages s..s+k−1: tile t of the grid gathers
+    its 2^13 values in layout L1, runs min(k, 5) register stages, for
+    k > 5 exchanges into L2 and runs the rest, and stores from the last
+    layout with the last pass's epilogue. Returns (out, flat indices)."""
+    rows, n = src.shape
+    log2n = n.bit_length() - 1
+    lw = F.pass_cols(s, k)
+    assert lw == COLS_TILE_LOG2 - k
+    tiles_log, cb_log = log2n - COLS_TILE_LOG2, s - lw
+    t = torch.arange(rows << tiles_log, dtype=torch.int64)
+    row, ti = t >> tiles_log, t & ((1 << tiles_log) - 1)
+    col0 = (((ti >> cb_log) << (s + k))
+            + ((ti & ((1 << cb_log) - 1)) << lw))
+    base = (row * n + col0)[:, None, None]
+
+    def pos(e):            # tile element → position relative to col0
+        return ((e >> lw) << s) + (e & ((1 << lw) - 1))
+
+    done = [] if done is None else done
+    l1, l2 = cols_layouts(k)
+    v = src.reshape(-1)[base + pos(l1)[None]]
+    for q in range(min(k, 5)):
+        v = _reg_stage(v, pos(l1), 1 << q, done)
+    lay = l1
+    if l2 is not None:
+        v = _exchange(v, l1, l2, 1 << COLS_TILE_LOG2)
+        for q in range(k - 5):
+            v = _reg_stage(v, pos(l2), 1 << q, done)
+        lay = l2
+    flat = base + pos(lay)[None]
+    if last:
+        v = _finish(v, flat, n, **store)
+    out = torch.empty_like(src)
+    out.reshape(-1)[flat] = v
+    return out, flat
+
+
+def passes_model(src, *, signs_in=None, row_mul=None, rescale=None,
+                 signs_out=None, sub_from=None, round_bf16=False):
+    """`run_passes`: `fwht_plan`'s passes in order, the first
+    (fwht_row_kernel) with the load steps, the last with the store
+    steps; every pass stores each value once."""
     y = src
     plan = F.fwht_plan(src.shape[-1].bit_length() - 1)
     for i, (s, k) in enumerate(plan):
-        y, flat = pass_model(y, s, k, F.pass_cols(s, k),
-                             last=i == len(plan) - 1, **(first if i == 0
-                                                          else {}))
-        assert torch.equal(flat.reshape(-1).sort().values,
-                           torch.arange(src.numel()))
+        last = i == len(plan) - 1
+        store = (dict(signs_out=signs_out, sub_from=sub_from,
+                      round_bf16=round_bf16) if last else {})
+        if s == 0:
+            y, flat = row_pass_model(y, k, last=last, signs_in=signs_in,
+                                     row_mul=row_mul, rescale=rescale,
+                                     **store)
+        else:
+            y, flat = cols_pass_model(y, s, k, last=last, **store)
+        assert bool((torch.bincount(flat.reshape(-1), minlength=src.numel())
+                     == 1).all())
     return y
 
 
@@ -159,18 +249,30 @@ def pack_flat_model(x, scale, bits, dither=None, mask=None):
 
 def encode_model(chunks, signs, bits, dither=None, mask=None, rescale=None,
                  residual_dtype=None):
-    """The encoder from 2^16 as `quantencode._passes` launches it (run here
-    at 16384, where the passes' index math is the same)."""
+    """The encoder from 2^16 as `quantencode._passes` launches it; at
+    16384 `run_passes` is one pass of the row kernel with the load and
+    the store steps both (the wrappers send 16384 to encode_row_kernel,
+    but the passes take it)."""
     e = passes_model(chunks, signs_in=signs)
     rowmax = e.abs().amax(-1, keepdim=True)         # max: any order, exact
     words, scale = pack_flat_model(e, rowmax, bits, dither, mask)
     if residual_dtype is None:
         return words, scale
+    return words, scale, ef_residual_model(chunks, signs, words, scale,
+                                           bits, mask, rescale,
+                                           residual_dtype)
+
+
+def ef_residual_model(chunks, signs, words, scale, bits, mask=None,
+                      rescale=None, residual_dtype=torch.float32):
+    """encode_ef's residual from 2^16 as `quantencode._passes` forms it:
+    the flat unpack, then the passes with the row mask and rescale at the
+    first loads and the signs, the rounding and u − y at the last stores."""
     x_hat = tref.unpack_dequant(words, scale, bits, chunks.shape[-1])
-    y = passes_model(x_hat, row_mul=mask,
-                     rescale=rescale if mask is not None else None)
-    y = (y * signs).to(residual_dtype).to(torch.float32)
-    return words, scale, chunks - y
+    return passes_model(x_hat, row_mul=mask,
+                        rescale=rescale if mask is not None else None,
+                        signs_out=signs, sub_from=chunks,
+                        round_bf16=residual_dtype == torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -178,18 +280,19 @@ def encode_model(chunks, signs, bits, dither=None, mask=None, rescale=None,
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("log2n", range(14, 31))
 def test_plan_keeps_the_stage_order_and_fits_a_block(log2n):
-    """Stages 0..L−1 once each in increasing order; 13 in the first pass
-    (contiguous), at most 10 later, with tiles of 2^13..2^15 floats and
-    W ≥ 32 (whole 128 B lines); 2^28 in three passes."""
+    """Stages 0..L−1 once each in increasing order; up to 15 in the first
+    pass (contiguous segments, the row kernel), at most 8 later, with
+    tiles of 2^13 floats and W ≥ 32 (whole 128 B lines) within the
+    2^s values a pair spans; 2^28 in three passes."""
     plan = F.fwht_plan(log2n)
     assert [s for s, k in plan for s in range(s, s + k)] == list(range(log2n))
-    assert plan[0] == (0, 13) and F.pass_cols(0, 13) == 0
+    assert plan[0] == (0, min(log2n, 15)) and F.pass_cols(*plan[0]) == 0
     for s, k in plan[1:]:
         lw = F.pass_cols(s, k)
-        assert 1 <= k <= 10 and 5 <= lw <= s
-        assert 13 <= k + lw <= 15
-    assert len(plan) == 1 + math.ceil((log2n - 13) / 10)
-    assert F.fwht_plan(28) == [(0, 13), (13, 8), (21, 7)]
+        assert 1 <= k <= 8 and 5 <= lw <= s
+        assert k + lw == 13
+    assert len(plan) == 1 + math.ceil(max(0, log2n - 15) / 8)
+    assert F.fwht_plan(28) == [(0, 15), (15, 7), (22, 6)]
 
 
 @pytest.mark.parametrize("log2n,rows", [(14, 3), (17, 2), (20, 1)])
@@ -208,10 +311,14 @@ def test_passes_bitwise_plain_and_jax(log2n, rows):
 
 def test_cuda_paths_above_8192_do_not_refuse():
     """What the CUDA wrappers check before a launch: every power of two
-    takes a kernel (the FWHT's passes above 8192; the encoders' row kernel
-    at 2^14 and 2^15, their passes from 2^16), other N raise."""
+    takes a kernel (the FWHT's row kernel at 2^14 and 2^15, its passes
+    from 2^16; the encoders' row kernel at 2^14 and 2^15, their passes
+    from 2^16), other N raise."""
     assert F.fwht_path(8192) == "single"
-    for log2n in (14, 15, 16, 20, 23, 26, 28):
+    for log2n in (14, 15):
+        assert F.fwht_path(1 << log2n) == "row"
+        assert F.fwht_plan(log2n) == [(0, log2n)]
+    for log2n in (16, 20, 23, 26, 28):
         assert F.fwht_path(1 << log2n) == "passes"
     for log2n in (14, 15):
         assert encode_path(1 << log2n) == "row"
@@ -225,6 +332,116 @@ def test_cuda_paths_above_8192_do_not_refuse():
         with pytest.raises(ValueError, match="power-of-2"):
             encode_path(bad)
     assert not hasattr(F, "MAX_N")
+
+
+def _pallas_fwht(x):
+    """The reference's Pallas FWHT (`repro.kernels.fwht._fwht_kernel`, the
+    body of fwht_pallas's pl.pallas_call) in interpret mode, as
+    tests/test_kernels.py runs it, on one block of all the rows: its
+    wrapper refuses N > 8192, a TPU VMEM budget, which the body does not
+    depend on."""
+    rows, n = x.shape
+    spec = pl.BlockSpec((rows, n), lambda i: (0, 0))
+    return pl.pallas_call(functools.partial(jfwht._fwht_kernel, n=n),
+                          grid=(1,), in_specs=[spec], out_specs=spec,
+                          out_shape=jax.ShapeDtypeStruct((rows, n),
+                                                         jnp.float32),
+                          interpret=True)(jnp.asarray(x))
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("log2n", [14, 15])
+def test_fwht_row_route_model_bitwise_plain_and_pallas(log2n, rows,
+                                                       one_thread):
+    """The "row" route, one launch of fwht_row_kernel: the row_fwht_model
+    schedule and the store from layout B, bitwise ref.fwht and the
+    reference's Pallas kernel."""
+    n = 1 << log2n
+    x = np.random.default_rng(log2n * 10 + rows).standard_normal(
+        (rows, n)).astype(np.float32)
+    got, flat = row_pass_model(torch.from_numpy(x), log2n, last=True)
+    assert torch.equal(flat.reshape(-1).sort().values, torch.arange(x.size))
+    assert F.fwht_plan(log2n) == [(0, log2n)]
+    np.testing.assert_array_equal(_bits(got), _bits(tref.fwht(
+        torch.from_numpy(x))))
+    np.testing.assert_array_equal(_bits(got), _bits(_pallas_fwht(x)))
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_cols_layouts_cover_the_tile_and_keep_the_stage_order(k):
+    """fwht_cols_kernel<k>: each layout holds every tile element once; the
+    register stages pair rows 2^s·2^q apart for q = 0..k−1, in increasing
+    order; every register of a warp holds 32 consecutive elements (the
+    loads, the stores and the exchange are 128 B a warp, free of bank
+    conflicts); the staged tile is 2^k runs of W contiguous floats."""
+    l1, l2 = cols_layouts(k)
+    for lay in (l1, l2):
+        if lay is None:
+            continue
+        assert torch.equal(lay.reshape(-1).sort().values,
+                           torch.arange(1 << COLS_TILE_LOG2))
+        warps = lay.reshape(-1, 32, ROW_V)
+        assert torch.equal(warps - warps[:, :1], torch.arange(32)[None, :,
+                                                                  None]
+                           .expand_as(warps))
+    assert (l2 is None) == (k <= 5)
+    s = 15
+    x = torch.zeros(1, 1 << (s + k))
+    done = []
+    cols_pass_model(x, s, k, last=False, done=done)
+    assert done == [1 << q for q in range(s, s + k)]
+
+
+# the reference's encoders compiled as one program with XLA's fusion pass
+# off, where each op rounds as written, as its eager ops do
+# (tests/test_torch_dist.py); eagerly each op compiles per new shape, for
+# seconds a shape at these N
+UNFUSED = {"xla_disable_hlo_passes": "fusion",
+           "xla_backend_optimization_level": 0}
+
+
+def _unfused(fn, *args):
+    return jax.jit(fn).lower(*args).compile(compiler_options=UNFUSED)(*args)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("log2n", [16, 17, 20])
+def test_passes_model_folds_bitwise_plain_and_jax(log2n, mode, one_thread):
+    """The passes from 2^16 in every fold mode of PassArgs, through the
+    encoders that fold them (`quantencode._passes`): the signs and the row
+    maximum (encode), the row mask and rescale at the first loads and the
+    signs, the bf16 rounding and the subtract at the last stores (the EF
+    residual, f32 and bf16), against ref.encode / encode_ef and the
+    reference's; on 2 rows (the second zero but for a spike in its last
+    value, and masked), at 2^20 on one row, kept."""
+    n, bits = 1 << log2n, {"det": 1, "dither": 2, "mask": 4, "rescale": 8}[mode]
+    rows = 1 if log2n == 20 else 2
+    x, signs, dither, mask = _inputs(rows, n, bits, log2n * 10 + bits)
+    mask[0] = 1.0
+    d, m, rescale = _mode(mode, dither, mask)
+    t = [None if v is None else torch.from_numpy(v)
+         for v in (x, signs, d, m)]
+    j = [None if v is None else jnp.asarray(v) for v in (x, signs, d, m)]
+    # rescale as an argument: XLA turns a division by a constant into a
+    # multiply by its reciprocal
+    jout = _unfused(lambda u, s, dd, mm, rs: [jref.encode_ef(
+        u, s, bits, dither=dd, mask=mm, rescale=rs, residual_dtype=dt)
+        for dt in (jnp.float32, jnp.bfloat16)], *j,
+        None if rescale is None else jnp.float32(rescale))
+    mw, ms, mr = encode_model(t[0], t[1], bits, t[2], t[3], rescale,
+                              torch.float32)
+    tw, ts = tref.encode(t[0], t[1], bits, dither=t[2], mask=t[3])
+    for tdt, (jw, js, jr) in zip((torch.float32, torch.bfloat16), jout):
+        for w, sc in ((tw, ts), (mw, ms)):
+            np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+            np.testing.assert_array_equal(_bits(sc), _bits(js))
+        _, _, tr = tref.encode_ef(t[0], t[1], bits, dither=t[2], mask=t[3],
+                                  rescale=rescale, residual_dtype=tdt)
+        if tdt == torch.bfloat16:
+            mr = ef_residual_model(t[0], t[1], mw, ms, bits, t[3], rescale,
+                                   tdt)
+        np.testing.assert_array_equal(_bits(tr), _bits(jr))
+        np.testing.assert_array_equal(_bits(mr), _bits(jr))
 
 
 # ---------------------------------------------------------------------------
@@ -400,11 +617,11 @@ def _exchange(v, src, dst, n):
     return buf[:, dst]
 
 
-def row_fwht_model(v, n, done):
+def row_fwht_model(v, n, done, scale=True):
     """fwht_low in layout A (register stages for bits 0-1, one shuffle and
     one p + v·(±1) per value for bits 2-6, register stages for bits 7-9),
-    the exchange to layout B, fwht_high (bits 10..log2 n − 1) and the one
-    multiply by f32(1/√n). v: (rows, T, 32) in layout A; returns layout B.
+    the exchange to layout B, fwht_high (bits 10..log2 n − 1) and, where
+    `scale`, the one multiply by f32(1/√n). v: (rows, T, 32) in layout A; returns layout B.
     The position bits of the stages, in order, are appended to `done`."""
     a, b = row_layouts(n)
     tid = torch.arange(n // ROW_V)
@@ -422,6 +639,8 @@ def row_fwht_model(v, n, done):
     log2t = (n // ROW_V).bit_length() - 1
     for q in range(10 - log2t, 5):
         v = _reg_stage(v, b, 1 << q, done)
+    if not scale:
+        return v
     return v * torch.tensor(F.inv_sqrt(n), dtype=torch.float32)
 
 

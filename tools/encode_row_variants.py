@@ -3,9 +3,10 @@ one card.
 
     python3 tools/encode_row_variants.py
 
-Each variant is `csrc/quantencode.cu` (and `ndsc_common.cuh`) with one
-textual change, built with nvcc into `build/encode_row_variants/<name>/`
-and bound with ctypes like the port's own library. Two are other designs
+Each variant is `csrc/quantencode.cu` and its headers with one textual
+change (in `row_fwht.cuh` where the row schedule is concerned), built
+with nvcc into `build/encode_row_variants/<name>/` and bound with ctypes
+like the port's own library. Two are other designs
 of the kernel and must give its bits ("exact"): `u_per_value` reads u for
 the residual from device memory value by value instead of one bulk copy
 into shared memory, and `one_block` runs 2^14 at one block per SM with
@@ -49,30 +50,32 @@ def _sub(text: str, old: str, new: str) -> str:
 
 
 def variants() -> dict:
-    """name -> (quantencode.cu, ndsc_common.cuh, exact)."""
+    """name -> ({source file: its text where it differs}, exact)."""
     src = (_build.CSRC / "quantencode.cu").read_text()
     hdr = (_build.CSRC / "ndsc_common.cuh").read_text()
+    row = (_build.CSRC / "row_fwht.cuh").read_text()
     u_in_buf = "rr[p] = __fsub_rn(buf[p], y);"
     per_value = _sub(_sub(_sub(
         src, "    if (tid == 0) bulk_load(buf, xr, N * 4, &bar_u);\n", ""),
         "    mbar_wait(&bar_u, parity_u);\n", ""),
         u_in_buf, "rr[p] = __fsub_rn(xr[p], y);")
     one_block = _sub(_sub(
-        src, "static constexpr int STAGE = N / 2;",
+        row, "static constexpr int STAGE = N / 2;",
         "static constexpr int STAGE = LOG2N == 14 ? N : N / 2;"),
         "static constexpr int BLOCKS = LOG2N == 14 ? 2 : 1;",
         "static constexpr int BLOCKS = 1;")
     return {
-        "kernel": (src, hdr, True),
-        "u_per_value": (per_value, hdr, True),
-        "one_block": (one_block, hdr, True),
-        "no_u": (_sub(src, u_in_buf, "rr[p] = __fsub_rn(0.0f, y);"), hdr,
+        "kernel": ({}, True),
+        "u_per_value": ({"quantencode.cu": per_value}, True),
+        "one_block": ({"row_fwht.cuh": one_block}, True),
+        "no_u": ({"quantencode.cu": _sub(src, u_in_buf,
+                                         "rr[p] = __fsub_rn(0.0f, y);")},
                  False),
-        "no_shuffle": (_sub(src, "for (int o = 1; o < 32; o <<= 1) {",
-                            "for (int o = 32; o < 32; o <<= 1) {"), hdr,
-                       False),
-        "mul_for_div": (src, _sub(hdr, "__fdiv_rn(v, denom)",
-                                  "__fmul_rn(v, denom)"), False),
+        "no_shuffle": ({"row_fwht.cuh": _sub(
+            row, "for (int o = 1; o < 32; o <<= 1) {",
+            "for (int o = 32; o < 32; o <<= 1) {")}, False),
+        "mul_for_div": ({"ndsc_common.cuh": _sub(
+            hdr, "__fdiv_rn(v, denom)", "__fmul_rn(v, denom)")}, False),
     }
 
 
@@ -80,13 +83,13 @@ def build(vs: dict) -> dict:
     """Every variant compiled at once; name -> its ndsc_encode."""
     nvcc = _build._nvcc()
     procs = {}
-    for name, (src, hdr, _) in vs.items():
+    for name, (files, _) in vs.items():
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
-        for h in _build.HEADERS:
-            shutil.copy(_build.CSRC / h, d / h)
-        (d / "ndsc_common.cuh").write_text(hdr)
-        (d / "quantencode.cu").write_text(src)
+        for f in _build.HEADERS + ("quantencode.cu",):
+            shutil.copy(_build.CSRC / f, d / f)
+        for f, text in files.items():
+            (d / f).write_text(text)
         cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(d), "-o",
                str(d / "lib.so"), str(d / "quantencode.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -142,7 +145,7 @@ def main() -> int:
                 _build.check(rc, name)
 
             out = {"n": n, "rows": rows, "variant": name,
-                   "exact": vs[name][2]}
+                   "exact": vs[name][1]}
             for kind, ef in (("encode_ef", True), ("encode", False)):
                 ms = cs.timed(lambda: call(ef), 5)
                 out[kind] = {"ms": ms, "bound_ms": bounds[kind],
@@ -151,7 +154,7 @@ def main() -> int:
             got = [t.clone() for t in (words, scale, resid)]
             if name == "kernel":
                 want = got
-            elif vs[name][2] and not all(
+            elif vs[name][1] and not all(
                     torch.equal(a.view(torch.int32), b.view(torch.int32))
                     for a, b in zip(got, want)):
                 raise AssertionError(f"{name} differs from the kernel at "
