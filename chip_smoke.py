@@ -6,7 +6,8 @@ Phases (any failed check raises, and the script exits non-zero; each
 prints its seconds):
   1. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
      in parallel); print the build seconds and each kernel's registers and
-     spilled bytes (ptxas);
+     spilled bytes (ptxas), and how many clusters of 2, 4, 8 and 16 CTAs of
+     the encoders' cluster kernel fit on the card at once;
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version on the card:
      a. the codec kernels and the FWHT, bitwise (words, scales, the f32 and
@@ -19,9 +20,10 @@ prints its seconds):
         (n, N) {whole rows of 32, 256, 8192 (the flat path); whole rows
         of 96, 12288 (a wpr not a power of two) and 255, 128 and 1 of 256
         or 32 (trimmed rows), the row path}; above N = 8192 (the FWHT's
-        passes; the encoders' row kernel at 2^14 and 2^15, their passes
-        at 2^20) the codec kernels and the FWHT the same way over bits ×
-        N {16384, 32768, 2^20} × the four modes × rows {1, 37}, and the
+        passes; the encoders' row kernel at 2^14 and 2^15, their cluster
+        kernel at 2^16 and 2^17, their passes at 2^20) the codec kernels
+        and the FWHT the same way over bits × N {16384, 32768, 2^16,
+        2^17, 2^20} × the four modes × rows {1, 37}, and the
         encoders alone at N {16384, 32768} × rows {300} (more rows than
         SMs: the persistent blocks stride);
      b. quantize_pack (bitwise) over bits × N {32, 128, 256, 8192, 12288}
@@ -61,7 +63,11 @@ prints its seconds):
         encoders' row kernel), checked bitwise, timed and bounded (with
         the share of the bound), with their launches per tree and the
         device activities of 4 calls under torch.profiler (the row kernel
-        only, at most once a call: no memset, no pass);
+        only, at most once a call: no memset, no pass); both encoders on
+        one tensor of that tree's coordinates in rows of 65536 and 131072
+        (the cluster kernel: bitwise, timed, bounded, with its device time
+        and the device activities of 4 calls, the cluster kernel only, at
+        most once a call) and of 2^20 (the FWHT's passes, timed);
   4. train yi-6b at full width (d_model 4096, 32/4 heads, d_ff 11008,
      vocab 64000) cut to 4 of its 32 layers: 3 steps at the launcher's
      defaults (batch 8, seq 128, R = 4, allgather_packed, error feedback);
@@ -76,6 +82,8 @@ prints its seconds):
      must launch 12 times per step; finite loss and params; the wq leaf's
      words, scales and EF residual (first and last 64 chunks) bitwise its
      CPU encode (the graph arm of 17c);
+  5c. the same at chunk 65536: encode_ef on its cluster kernel (12
+     launches a step), the FWHT's passes (the graph arm of 17h);
   6. the reduced yi-6b for 2 steps on the card and on the CPU from the same
      weights and tokens: losses and parameters must agree;
   7. serve yi-6b at full width and all 32 layers through the 8-bit NDSC KV
@@ -297,8 +305,8 @@ prints its seconds):
      memory, the programs' capture seconds, the graph pool's bytes); f.
      11a's NCCL world of 1 (its 2 steps) and its ZeRO-1 and all-gather
      steps; g. 13e (xlstm-350m), then XLSTM_TURNS pairs in turns as in
-     a. 11b-d's gloo ranks and 16's meshes stay eager: gloo's collectives
-     are host calls a graph cannot hold;
+     a; h. phase 5c (chunk 65536). 11b-d's gloo ranks and 16's meshes
+     stay eager: gloo's collectives are host calls a graph cannot hold;
  12. print {"kernels": [...]} and, last, the device line.
 
 Without CUDA it exits non-zero before printing any result. Nothing here
@@ -2054,19 +2062,21 @@ def time_quantize_pack_ratq(ops, ref, dev, cfg) -> dict:
 LARGE_LIB_SHAPES = ((16384, 4096), (32768, 2048))
 LARGE_CHUNK = 16384          # the codec chunk of phase 5b
 ROW_CHUNKS = (16384, 32768)  # 3f's encoder chunks: the encoders' row kernel
-PASS_CHUNK = 65536           # 3f's encoders on the FWHT's passes
+CLUSTER_CHUNKS = (65536, 131072)  # 3f: the encoders' cluster route
+CLUSTER_CHUNK = 65536        # the codec chunk of phase 5c
+PASS_CHUNK = 1 << 20         # 3f's encoders on the FWHT's passes
 
 
 ROW_CALLS = 4                # 3f: the wrapper calls of one profiled window
 
 
-def device_activities(fn, calls: int = ROW_CALLS, tries: int = 3) -> list:
-    """Names of the device activities (kernels, memsets, copies) of
-    `calls` calls of fn under torch.profiler, in start order, after a
-    warm-up call. The profiler has been seen to drop activities at the
-    edges of a short window, so each window is fenced by a spin kernel
-    before and after the calls, and one in which either fence is missing
-    is taken again, up to `tries` times."""
+def fenced_window(fn, calls: int = ROW_CALLS, tries: int = 3) -> tuple:
+    """(names, device ms per call) of the device activities (kernels,
+    memsets, copies) of `calls` calls of fn under torch.profiler, in start
+    order, after a warm-up call. The profiler has been seen to drop
+    activities at the edges of a short window, so each window is fenced by
+    a spin kernel before and after the calls, and one in which either
+    fence is missing is taken again, up to `tries` times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2083,12 +2093,19 @@ def device_activities(fn, calls: int = ROW_CALLS, tries: int = 3) -> list:
         dev = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-        names = [e.name for e in dev]
-        fences = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        fences = [i for i, e in enumerate(dev) if "spin_kernel" in e.name]
         if len(fences) == 2:
-            return names[fences[0] + 1:fences[1]]
+            inside = dev[fences[0] + 1:fences[1]]
+            us = sum(e.time_range.end - e.time_range.start for e in inside)
+            return [e.name for e in inside], us / 1e3 / calls
     raise AssertionError(f"3f: the profiler dropped a fence of each of "
                          f"{tries} windows")
+
+
+def device_activities(fn, calls: int = ROW_CALLS, tries: int = 3) -> list:
+    """Names of the device activities of `calls` calls of fn, in start
+    order (fenced_window)."""
+    return fenced_window(fn, calls, tries)[0]
 
 
 def time_large_fwht(ops, ref, dev) -> dict:
@@ -2138,13 +2155,17 @@ def time_large_fwht(ops, ref, dev) -> dict:
 
 
 def large_encoders_one_tensor(ops, ref, dev, cfg, chunk: int = PASS_CHUNK,
-                              plain: bool = True) -> dict:
+                              plain: bool = True,
+                              activities: bool = False) -> dict:
     """3f: encode_ef (EF, f32 residual) and encode (dither, keep-0.5 row
-    mask) on one tensor of `cfg`'s coordinates in rows of `chunk` (from
-    2^16 the FWHT's passes with the encoders' steps folded in): words,
-    scales and residual bitwise the plain version, the launches of one
-    call each, timed (CUDA events, medians of 5; plain of 3 where
-    `plain`) beside the bound."""
+    mask) on one tensor of `cfg`'s coordinates in rows of `chunk` (2^16
+    and 2^17 the cluster route; above, the FWHT's passes with the
+    encoders' steps folded in): words, scales and residual bitwise the
+    plain version, the launches of one call each, timed (CUDA events,
+    medians of 5; plain of 3 where `plain`) beside the bound, with the
+    device time per call of ROW_CALLS calls in a fenced profiler window
+    ("not measured" where the profiler loses its fences) and, where
+    `activities`, their device activities (a lost window raises)."""
     from repro_torch import tree as tree_lib
     from repro_torch.kernels import cost as kcost
     from repro_torch.models import model as model_lib
@@ -2178,11 +2199,20 @@ def large_encoders_one_tensor(ops, ref, dev, cfg, chunk: int = PASS_CHUNK,
         del got, want
         b, by = bound_ms(*cost)
         ms = timed(call)
+        try:
+            acts, dev_ms = fenced_window(call)
+        except AssertionError:        # the profiler lost the window's fences
+            if activities:
+                raise
+            dev_ms = "not measured"
         out[name] = {"launches": launches, "ms": ms,
                      "plain_ms": timed(plain_call, 3) if plain
                      else "not measured",
                      "library_ms": None, "bound_ms": b, "bound_by": by,
-                     "share_of_bound": b / ms, "max_abs_err": 0.0}
+                     "share_of_bound": b / ms, "max_abs_err": 0.0,
+                     "device_ms": dev_ms}
+        if activities:
+            out[name][f"device_activities_of_{ROW_CALLS}_calls"] = acts
     del u, s, d, m, calls
     torch.cuda.empty_cache()
     return out
@@ -2265,28 +2295,45 @@ def time_large_encoders(ops, ref, dev, cfg, chunk: int = LARGE_CHUNK,
     return out
 
 
-def check_row_route(enc: dict, chunk: int) -> None:
-    """3f: ROW_CALLS wrapper calls at `chunk` (the row kernel) ran the row
-    kernel and nothing else (no memset, no pass), at most once a call (a
-    dropped activity can only lower the count)."""
+def cluster_fits() -> dict:
+    """1: the clusters of 2, 4, 8 and 16 CTAs of the encoders' cluster
+    kernel that fit on the card at once (16: non-portable), or the error
+    of the query where none does: what CLUSTER_MAX_N = 2^17 rests on."""
+    from repro_torch.kernels import quantencode
+    out = {}
+    for c in (2, 4, 8, 16):
+        try:
+            out[str(c)] = quantencode.cluster_fit(c)
+        except RuntimeError as e:          # a report: no route depends on it
+            out[str(c)] = f"none ({e})"
+    return out
+
+
+def check_row_route(enc: dict, chunk: int,
+                    kernel: str = "encode_row_kernel") -> None:
+    """3f: ROW_CALLS wrapper calls at `chunk` ran `kernel` (the row
+    kernel, or the cluster kernel) and nothing else (no memset, no pass),
+    at most once a call (a dropped activity can only lower the count)."""
     for name in ("encode_ef", "encode"):
         k = enc[name][f"device_activities_of_{ROW_CALLS}_calls"]
-        if not k or len(k) > ROW_CALLS or not all(
-                "encode_row_kernel" in n for n in k):
+        if not k or len(k) > ROW_CALLS or not all(kernel in n for n in k):
             raise AssertionError(f"3f: {ROW_CALLS} {name} calls at chunk "
-                                 f"{chunk} ran {k}, want one row kernel "
+                                 f"{chunk} ran {k}, want one {kernel} "
                                  "each")
         enc[name]["device_kernels_per_call"] = len(k) / ROW_CALLS
 
 
-# -- phase 5b: training at chunk 16384 (the encoders' row kernel, FWHT passes)
-def train_chunk_phase(dev, cfg=None, steps: int = 2) -> dict:
-    """5b: yi-6b at full width cut to 1 layer, `steps` steps of
-    launch.train.train at the launcher's defaults but chunk LARGE_CHUNK
-    (R 4, allgather_packed with EF, batch 8, seq 128): encode_ef,
-    unpack_dequant and fwht launch once per leaf and step (12), all above
-    N = 8192; loss and params finite; then the wq leaf's words, scales and
-    EF residual (its first and last 64 chunks) bitwise its CPU encode."""
+# -- phases 5b and 5c: training at chunks 16384 and 65536 (the encoders' row
+#    kernel and cluster kernel; the FWHT's row kernel and passes)
+def train_chunk_phase(dev, cfg=None, steps: int = 2,
+                      chunk: int = LARGE_CHUNK) -> dict:
+    """5b (5c at CLUSTER_CHUNK): yi-6b at full width cut to 1 layer,
+    `steps` steps of launch.train.train at the launcher's defaults but
+    chunk `chunk` (R 4, allgather_packed with EF, batch 8, seq 128):
+    encode_ef, unpack_dequant and fwht launch once per leaf and step (12),
+    all above N = 8192; loss and params finite; then the wq leaf's words,
+    scales and EF residual (its first and last 64 chunks) bitwise its CPU
+    encode."""
     from repro_torch import configs
     from repro_torch import tree as tree_lib
     from repro_torch.dist import gradcomp as G
@@ -2294,13 +2341,14 @@ def train_chunk_phase(dev, cfg=None, steps: int = 2) -> dict:
     from repro_torch.launch.train import train
 
     cfg = cfg or dataclasses.replace(configs.get("yi-6b"), num_layers=1)
-    gc = G.GradCompConfig(bits=4, chunk=LARGE_CHUNK)
+    gc = G.GradCompConfig(bits=4, chunk=chunk)
+    tag = "5b" if chunk == LARGE_CHUNK else "5c"
     per_step = []
 
     def count_step(step, metrics):
         per_step.append(ops.launch_counts())
         if not math.isfinite(float(metrics["loss"])):
-            raise AssertionError(f"5b: non-finite loss at step {step}")
+            raise AssertionError(f"{tag}: non-finite loss at step {step}")
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2313,15 +2361,16 @@ def train_chunk_phase(dev, cfg=None, steps: int = 2) -> dict:
     for s, c in enumerate(per_step):
         for k in ("encode_ef", "unpack_dequant", "fwht"):
             if c[k] - prev[k] != n_leaves:
-                raise AssertionError(f"5b step {s}: {k} launched "
+                raise AssertionError(f"{tag} step {s}: {k} launched "
                                      f"{c[k] - prev[k]} times, want "
                                      f"{n_leaves}")
         prev = c
     if counts["encode"] != 0:
-        raise AssertionError("5b: the EF path launched the plain encode")
+        raise AssertionError(f"{tag}: the EF path launched the plain "
+                             "encode")
     if not all(bool(torch.isfinite(p).all())
                for p in tree_lib.leaves(params)):
-        raise AssertionError("5b: non-finite parameters")
+        raise AssertionError(f"{tag}: non-finite parameters")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # "blocks" sorts first among the top-level keys, and its leaves are
@@ -2333,18 +2382,21 @@ def train_chunk_phase(dev, cfg=None, steps: int = 2) -> dict:
     rows = chunks.shape[0]
     signs = G._frame_signs(i, gc, "cpu")
     spans = sorted({(0, min(64, rows)), (max(0, rows - 64), rows)})
+    flat = resid.reshape(-1)          # the leaf's values: no padding
     for r0, r1 in spans:
-        want = ref.encode_ef(chunks[r0:r1].cpu(), signs, gc.bits)
+        want = list(ref.encode_ef(chunks[r0:r1].cpu(), signs, gc.bits))
+        got_r = flat[r0 * gc.chunk:r1 * gc.chunk].cpu()
+        want[2] = want[2].reshape(-1)[:got_r.numel()]
         got = (payload["words"][r0:r1].cpu(), payload["scale"][r0:r1].cpu(),
-               resid.reshape(rows, gc.chunk)[r0:r1].cpu())
+               got_r)
         if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                    for a, b in zip(got, want)):
-            raise AssertionError(f"5b: wq chunks {r0}..{r1} differ from the "
-                                 "CPU encode")
+            raise AssertionError(f"{tag}: wq chunks {r0}..{r1} differ from "
+                                 "the CPU encode")
     out = {"leaves": n_leaves, "chunk": gc.chunk, "losses": losses,
            "step_s": secs, "peak_mem_GB": peak_gb, "launches": counts,
            "wq_chunks": rows, "wq_chunks_checked_bitwise": spans}
-    log(f"[5b train x1 chunk {gc.chunk}] {json.dumps(out)}")
+    log(f"[{tag} train x1 chunk {gc.chunk}] {json.dumps(out)}")
     del params, payload, resid, chunks, u
     torch.cuda.empty_cache()
     return out
@@ -3978,7 +4030,7 @@ def graph_timing_phase(dev, cfg, label: str, traffic: dict) -> dict:
 
 
 # -- phase 17: the captured training programs (repro_torch.graph) ----------
-# Phases 4, 5, 5b, 10b, 10c, 11a and 13e are the graph arm; right after
+# Phases 4, 5, 5b, 5c, 10b, 10c, 11a and 13e are the graph arm; right after
 # each, its runs again inside graph.eager() from the same seed, held bitwise
 # (run beside each arm, so that no arm's state is held across phases), and
 # for yi-6b x4, xlstm-350m and the m 512 round, graph and eager in turns.
@@ -4257,6 +4309,7 @@ def main() -> int:
     from repro_torch.dist import gradcomp as G
     from repro_torch.kernels import _build, checks, ops, ref
     from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.quantencode import encode_path
     from repro_torch.launch.train import train
     from repro_torch.models import model as model_lib
 
@@ -4274,6 +4327,9 @@ def main() -> int:
         log(f"[build] {name}.cu: " + " | ".join(
             f"{fn} {regs} regs, {spill} B spilled"
             for fn, regs, spill in report))
+    cluster_fit = cluster_fits()
+    log(f"[build] encode_cluster_kernel: active clusters of 2, 4, 8, 16 "
+        f"CTAs (cudaOccupancyMaxActiveClusters): {json.dumps(cluster_fit)}")
     clock.done("1 build")
 
     # -- 2. card --------------------------------------------------------------
@@ -4461,7 +4517,16 @@ def main() -> int:
         log(json.dumps({"kernel": f"encoders/chunk {chunk}", **enc}))
         check_row_route(enc, chunk)
         large_encoders[f"chunk {chunk}"] = enc
-    enc = large_encoders_one_tensor(ops, ref, dev, cfg1)
+    for chunk in CLUSTER_CHUNKS:
+        if encode_path(chunk) != "cluster":
+            raise AssertionError(f"3f: chunk {chunk} takes the "
+                                 f"{encode_path(chunk)} route")
+        enc = large_encoders_one_tensor(ops, ref, dev, cfg1, chunk,
+                                        activities=True)
+        log(json.dumps({"kernel": f"encoders/chunk {chunk}", **enc}))
+        check_row_route(enc, chunk, "encode_cluster_kernel")
+        large_encoders[f"chunk {chunk}"] = enc
+    enc = large_encoders_one_tensor(ops, ref, dev, cfg1, PASS_CHUNK)
     log(json.dumps({"kernel": f"encoders/chunk {PASS_CHUNK}", **enc}))
     large_encoders[f"chunk {PASS_CHUNK}"] = enc
     clock.done("3f FWHT and encoders above N = 8192")
@@ -4555,6 +4620,20 @@ def main() -> int:
                            box5b, "c chunk 16384 x1")
     del box5b
     clock.done("5b train x1 chunk 16384 (17c: eager rerun)")
+
+    # -- 5c. 1 layer at chunk 65536: the encoders' cluster kernel -----------
+    if encode_path(CLUSTER_CHUNK) != "cluster":
+        raise AssertionError(f"5c: chunk {CLUSTER_CHUNK} takes the "
+                             f"{encode_path(CLUSTER_CHUNK)} route")
+    box5c = {}
+    with kept_train(box5c):
+        train_cluster = train_chunk_phase(dev, chunk=CLUSTER_CHUNK)
+    box5c["losses"] = list(train_cluster["losses"])
+    p17["h"] = eager_rerun(dev, cfg1, G.GradCompConfig(bits=4,
+                                                      chunk=CLUSTER_CHUNK),
+                           box5c, "h chunk 65536 x1")
+    del box5c
+    clock.done("5c train x1 chunk 65536 (17h: eager rerun)")
 
     # -- 6. small input: the card vs the CPU's plain versions -----------------
     train_card_vs_cpu(dev, configs.get_reduced("yi-6b"), gc_ef, "small")
@@ -4693,6 +4772,16 @@ def main() -> int:
             name]
         names[f"{name}/passes"] = (names["fwht"][0], names[name][1], {
             f"{name}/passes": results[f"{name}/passes"]["launches"]})
+    # the encoders' cluster kernel at chunk 65536: encode_ef launched by
+    # 5c's training, encode by 3f's one-tensor call (counts reset before
+    # each)
+    cluster = large_encoders[f"chunk {CLUSTER_CHUNK}"]
+    for name, launched in (("encode_ef",
+                            train_cluster["launches"]["encode_ef"]),
+                           ("encode", cluster["encode"]["launches"])):
+        results[f"{name}/cluster"] = cluster[name]
+        names[f"{name}/cluster"] = (names[name][0], names[name][1],
+                                    {f"{name}/cluster": launched})
     kernels = []
     for name, (src, replaces, counts) in names.items():
         if not counts[name]:
@@ -4714,7 +4803,9 @@ def main() -> int:
               "codecs": codec_numbers, "federation": fed_numbers,
               "quantize_pack_ratq_train": ratq_pack,
               "large_n": {"fwht": large_fwht, "encoders": large_encoders,
-                          "train_x1_chunk16384": train_chunk},
+                          "cluster_fit": cluster_fit,
+                          "train_x1_chunk16384": train_chunk,
+                          "train_x1_chunk65536": train_cluster},
               "dist_one_rank": dist_a, "dist_four_ranks": dist_ranks,
               "families": {"serve_mixtral_x4": moe_serve,
                            "serve_mixtral_x4_launches": moe_serve_counts,

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "quantencode": {
         "ndsc_encode": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _F, _I,
                         _F, _I, _P],
+        "ndsc_encode_cluster_fit": [_I, _P],
     },
     "quantdecode": {
         "ndsc_quant_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I,

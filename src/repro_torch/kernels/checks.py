@@ -26,9 +26,9 @@ FWHT_SMALL_N = (1, 2, 4, 8, 16)
 CODEC_ROWS = (1, 37, 1031)
 CODEC_MODES = ("det", "dither", "mask", "rescale")
 # N above 8192: the FWHT's and the encoders' row kernels at 2^14 and 2^15;
-# from 2^16 their passes, every fold of them through the encoders (2^16,
-# 2^17: a last pass of one and two stages; 2^20: 15 + 5), at rows
-# LARGE_ROWS
+# from 2^16 the FWHT's passes (2^16, 2^17: a last pass of one and two
+# stages; 2^20: 15 + 5), the encoders' cluster kernel at 2^16 and 2^17 and
+# their passes, every fold of them, at 2^20, at rows LARGE_ROWS
 LARGE_N = (16384, 32768, 2 ** 16, 2 ** 17, 2 ** 20)
 LARGE_ROWS = (1, 37)
 # the row kernels (the FWHT's, and the encoders' alone) at more rows than
@@ -36,6 +36,10 @@ LARGE_ROWS = (1, 37)
 # over rows and its staged copy of the next row is used
 ROW_N = (16384, 32768)
 ROW_ROWS = (300,)
+# the encoders' cluster kernel (a cluster of 4 or 8 CTAs a row), at rows
+# LARGE_ROWS + ROW_ROWS: more rows than clusters fit, so that each
+# persistent cluster strides over rows
+CLUSTER_N = (2 ** 16, 2 ** 17)
 # the FWHT alone on one row of the dsc codec's largest frames (yi-6b's
 # leaves): 2^23 (two passes: 15 + 8), 2^26 and 2^28 (three)
 FWHT_HUGE_N = (2 ** 23, 2 ** 26, 2 ** 28)
@@ -118,10 +122,11 @@ def check_codec(n, bits, mode, rows, dev) -> None:
         raise AssertionError(f"fwht differs: {what}")
 
 
-def check_encoders(n, bits, mode, rows, dev) -> tuple:
+def check_encoders(n, bits, mode, rows, dev, unaligned=False) -> tuple:
     """check_codec's encoders alone: encode and encode_ef (f32 and bf16
-    residuals) bitwise, in "det" mode also from unaligned inputs. Returns
-    (x, words, scale) of the plain encode."""
+    residuals) bitwise, in "det" mode (in every mode where `unaligned`)
+    also from unaligned inputs. Returns (x, words, scale) of the plain
+    encode."""
     x, signs, dither, mask = codec_inputs(rows, n, bits, n + bits + rows,
                                           dev)
     d = dither if mode in ("dither", "rescale") else None
@@ -136,7 +141,8 @@ def check_encoders(n, bits, mode, rows, dev) -> tuple:
     def same(a, b):
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
-    for xi in [x] + ([unaligned_copy(x)] if mode == "det" else []):
+    for xi in [x] + ([unaligned_copy(x)] if unaligned or mode == "det"
+                     else []):
         kw, ks = ops.encode(xi, signs, bits, dither=d, mask=m)
         if not (torch.equal(kw, rw) and same(ks, rs)):
             raise AssertionError(f"encode payload differs: {what}")

@@ -1,10 +1,10 @@
-"""CUDA kernels: the NDSC encoder (`csrc/quantencode.cu`, and from
-N = 2^16 a sequence of passes).
+"""CUDA kernels: the NDSC encoder (`csrc/quantencode.cu`, and above
+`CLUSTER_MAX_N` a sequence of passes).
 
 Counterpart of `repro.kernels.quantencode.encode_pallas` and
 `encode_ef_pallas`: sign flip → FWHT → ℓ∞ scale → (dither) → quantize →
 int32 pack → (row mask), and for `encode_ef` the decode of its own payload
-and the residual u − D(E(u)). `encode_path` picks one of three routes by N:
+and the residual u − D(E(u)). `encode_path` picks one of four routes by N:
 - "fused", 32 ≤ N ≤ 8192: the warp-resident kernel (N ≤ 1024) or the
   shared-memory one of `quantencode.cu`, one launch;
 - "row", N = 2^14 and 2^15: `encode_row_kernel`, one launch, persistent
@@ -13,7 +13,20 @@ and the residual u − D(E(u)). `encode_path` picks one of three routes by N:
   strided one (the header of `quantencode.cu` has the design and its
   register and shared-memory budget per N; the schedule is
   `csrc/row_fwht.cuh`, shared with the FWHT's row kernel);
-- "passes", N ≥ 2^16: the FWHT's passes (`fwht.run_passes`) with the signs
+- "cluster", 2^16 ≤ N ≤ `CLUSTER_MAX_N` = 2^17: `encode_cluster_kernel`,
+  one launch. A row is held by a thread-block cluster of C = N / 2^14
+  CTAs (4 or 8, within the portable cluster size of 8), each CTA a
+  segment of 2^14 in the row kernel's registers and schedule (512
+  threads, 64 registers, 96 KB of shared memory, two CTAs an SM). The
+  top log2(C) stages follow one exchange through distributed shared
+  memory that transposes the row: CTA r then holds piece r (2^14 / C
+  positions) of every segment, runs the stages over the segments in
+  registers, and quantizes, packs and writes those pieces; the row
+  maximum is the maximum of the CTAs' maxima, read the same way. The EF
+  inverse reads its own segment's words back and runs the same schedule.
+  Persistent clusters stride over rows (as many as
+  `cudaOccupancyMaxActiveClusters` fits);
+- "passes", N > 2^17: the FWHT's passes (`fwht.run_passes`) with the signs
   folded into the first one's loads and the row maximum into the last
   one's stores, then the flat quantize_pack kernel with the dither and
   the mask, and for `encode_ef` the flat unpack_dequant kernel and the
@@ -31,6 +44,7 @@ The dither and the keep mask are drawn outside the kernel (in
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -43,17 +57,36 @@ from repro_torch.kernels.fwht import (ROW_MAX_N, SINGLE_MAX_N,
 from repro_torch.kernels.quantpack import _quantize_pack, _unpack_flat
 
 MIN_N = 32
+# the largest N of the "cluster" route (quantencode.cu kClusterMaxN): a
+# cluster of 8 CTAs of 2^14, the portable cluster size; 2^18 would need
+# 16-CTA clusters (non-portable), whose fit chip_smoke.py phase 1 prints
+CLUSTER_MAX_N = 1 << 17
 
 
 def encode_path(n: int) -> str:
-    """"fused" for 32 ≤ N ≤ 8192, "row" for 2^14 and 2^15 (each one kernel
-    of quantencode.cu), "passes" from 2^16; N must be a power of two."""
+    """"fused" for 32 ≤ N ≤ 8192, "row" for 2^14 and 2^15, "cluster" for
+    2^16 ≤ N ≤ CLUSTER_MAX_N (each one kernel of quantencode.cu), "passes"
+    above; N must be a power of two."""
     if n & (n - 1) or n < MIN_N:
         raise ValueError(
             f"CUDA encode needs a power-of-2 N ≥ {MIN_N}, got {n}")
     if n <= SINGLE_MAX_N:
         return "fused"
-    return "row" if n <= ROW_MAX_N else "passes"
+    if n <= ROW_MAX_N:
+        return "row"
+    return "cluster" if n <= CLUSTER_MAX_N else "passes"
+
+
+def cluster_fit(cluster: int) -> int:
+    """The clusters of `cluster` CTAs of the "cluster" route's kernel (its
+    threads and shared memory) that fit on the current card at once
+    (`cudaOccupancyMaxActiveClusters`; above 8 CTAs with the non-portable
+    opt-in). Raises where the query fails."""
+    out = ctypes.c_int(0)
+    rc = _build.library("quantencode").ndsc_encode_cluster_fit(
+        cluster, ctypes.byref(out))
+    _build.check(rc, f"cluster fit of {cluster} CTAs")
+    return out.value
 
 
 @functools.cache

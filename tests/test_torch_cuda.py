@@ -10,8 +10,9 @@ Payloads (words, scale bits), the EF residual in f32 and bf16, the FWHT,
 unpack_dequant (also on whole-range words, unaligned, trimmed) and
 quantize_pack must be bitwise equal to the plain versions, below and above
 N = 8192 (the FWHT's and the encoders' row kernels at 2^14 and 2^15,
-also over more rows than SMs; their passes beyond, in every fold mode,
-and the FWHT's up to one row of 2^28); the KV-cache
+also over more rows than SMs; the encoders' cluster kernel at 2^16 and
+2^17, also over more rows than clusters; the passes beyond, in every fold
+mode, and the FWHT's up to one row of 2^28); the KV-cache
 decode attention within rtol = atol = 2e-4, the bound the JAX package
 holds its Pallas kernel to (exponentials and sums run in another
 order). The codecs' paths (RATQ's rung, `ops.rotate`, lane-stacked
@@ -160,6 +161,27 @@ def test_cuda_large_n_row_encoders_stride_over_rows(cuda, bits, n, mode,
     inputs."""
     C.check_encoders(n, bits, mode, rows, cuda)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", C.LARGE_ROWS + C.ROW_ROWS)
+@pytest.mark.parametrize("bits", C.BITS)
+@pytest.mark.parametrize("n", C.CLUSTER_N)
+@pytest.mark.parametrize("mode", C.CODEC_MODES)
+def test_cuda_large_n_cluster_route_strides_over_rows(cuda, bits, n, mode,
+                                                      rows):
+    """The encoders' cluster kernel (a cluster of CTAs a row, the top
+    stages through distributed shared memory) on one row, on fewer rows
+    than persistent clusters and on more: encode and encode_ef (f32 and
+    bf16 residuals) bitwise, with the check_codec grid's special rows,
+    from aligned and unaligned inputs in every mode; one launch a call."""
+    from repro_torch.kernels.quantencode import encode_path
+    assert encode_path(n) == "cluster"
+    ops.reset_launch_counts()
+    C.check_encoders(n, bits, mode, rows, cuda, unaligned=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["encode"], counts["encode_ef"]) == (2, 4)
 
 
 @pytest.mark.cuda

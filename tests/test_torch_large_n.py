@@ -14,8 +14,10 @@ the store from the second layout. A later pass of stages [s, s + k) is
 W = 2^(13−k) contiguous columns: 32 values a thread, min(k, 5) stages in
 registers, and for k > 5 one exchange into a second layout for the rest.
 The encoders at N = 2^14 and 2^15 run one kernel (`encode_row_kernel` in
-`csrc/quantencode.cu`, route "row"); from 2^16 they run those passes with
-their per-value steps folded in, then the flat quantize_pack kernel with a
+`csrc/quantencode.cu`, route "row"), at 2^16 and 2^17 another
+(`encode_cluster_kernel`, route "cluster", modelled in
+`tests/test_torch_cluster_encode.py`); above 2^17 they run those passes
+with their per-value steps folded in, then the flat quantize_pack kernel with a
 dither and a row mask, and for the EF residual the flat unpack kernel and
 the passes again (`quantencode.py`). Every float step is one f32
 rounding, so each model must be bitwise the plain version; so must the
@@ -312,8 +314,8 @@ def test_passes_bitwise_plain_and_jax(log2n, rows):
 def test_cuda_paths_above_8192_do_not_refuse():
     """What the CUDA wrappers check before a launch: every power of two
     takes a kernel (the FWHT's row kernel at 2^14 and 2^15, its passes
-    from 2^16; the encoders' row kernel at 2^14 and 2^15, their passes
-    from 2^16), other N raise."""
+    from 2^16; the encoders' row kernel at 2^14 and 2^15, their cluster
+    kernel at 2^16 and 2^17, their passes above), other N raise."""
     assert F.fwht_path(8192) == "single"
     for log2n in (14, 15):
         assert F.fwht_path(1 << log2n) == "row"
@@ -322,7 +324,9 @@ def test_cuda_paths_above_8192_do_not_refuse():
         assert F.fwht_path(1 << log2n) == "passes"
     for log2n in (14, 15):
         assert encode_path(1 << log2n) == "row"
-    for log2n in (16, 17, 20, 23, 26, 28):
+    for log2n in (16, 17):
+        assert encode_path(1 << log2n) == "cluster"
+    for log2n in (18, 20, 23, 26, 28):
         assert encode_path(1 << log2n) == "passes"
     assert encode_path(32) == encode_path(8192) == "fused"
     for bad in (0, 3, 12288, (1 << 20) + 32):

@@ -9,7 +9,7 @@ given, so `tools/fwht_time.py build/parent/src src src build/parent/src`
 compares two trees on one card in turns. For each tree, in this order:
 encode_ef (EF) and the dithered, keep-0.5 encode on the 1-layer yi-6b tree
 at chunks 16384 and 32768 (`time_large_encoders`, the encoders' row
-kernel) and on one tensor of 3f's rows at chunk 65536
+kernel) and on one tensor of 3f's rows at chunk 2^20
 (`large_encoders_one_tensor`, the passes route); the FWHT at
 chip_smoke.py phase 3f's shapes (LARGE_LIB_SHAPES and one row of each
 checks.FWHT_HUGE_N), bitwise its plain version, timed by CUDA events
@@ -54,8 +54,8 @@ def time_tree(src: Path, train: bool) -> dict:
             name: {k: enc[name][k] for k in ("ms", "bound_ms",
                                              "share_of_bound")}
             for name in ("encode_ef", "encode")}
-    out["chunk 65536"] = cs.large_encoders_one_tensor(ops, ref, dev, cfg1,
-                                                      plain=False)
+    out[f"chunk {cs.PASS_CHUNK}"] = cs.large_encoders_one_tensor(
+        ops, ref, dev, cfg1, cs.PASS_CHUNK, plain=False)
     g = torch.Generator(device=dev)
     g.manual_seed(13)
     for n, rows in (list(cs.LARGE_LIB_SHAPES)
