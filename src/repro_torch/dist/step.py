@@ -62,8 +62,17 @@ call runs under a "dist.step" (or "dist.step.zero1") span and emits
 per-step counters of the ANALYTIC per-worker payload bytes
 (`gradcomp.wire_bytes_tree` over the model's parameter shapes, computed
 once at factory time). Disabled, the wrapper costs one global load per
-call; the program registers with `obs.recompile` under the span's name
-(an eager step counts no specialization).
+call and a check of the profiler's flag (a running `torch.profiler`
+sees the call as a label of the span's name); the program registers with
+`obs.recompile` under the span's name (an eager step counts no
+specialization), and its first calls' set-up seconds go under it
+(`graph.setup_seconds`).
+
+On the card both train steps launch a phase mark (`kernels.marks`) before
+the forward, the backward, the consensus, the optimizer and the state
+write, and one after the last write: captured, the marks replay in order
+inside the step's graph, and a profiler's trace splits the step's device
+time into these phases.
 """
 from __future__ import annotations
 
@@ -82,6 +91,7 @@ from repro_torch.codecs import stages as codec_stages
 from repro_torch.dist import gradcomp as G
 from repro_torch.dist import sharding
 from repro_torch.dist import zero as zero_lib
+from repro_torch.kernels import marks as marks_lib
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
 from repro_torch.obs import core as obs_lib
@@ -168,7 +178,7 @@ def _program(step, name: str, captured: bool, gc: G.GradCompConfig,
     optimizer state, EF) by pointer where `captured`, else as it is; with
     the obs wrapper around either."""
     if captured:
-        step = graph_lib.Program(step, STATE_ARGS)
+        step = graph_lib.Program(step, STATE_ARGS, name=name)
     return _with_obs(step, name, gc, payload_bytes)
 
 
@@ -213,7 +223,8 @@ def _with_obs(fn, name: str, gc: G.GradCompConfig, payload_bytes):
 
     def stepper(params, opt_state, ef, batch):
         if not obs_lib.enabled():
-            return fn(params, opt_state, ef, batch)
+            with obs_lib.label(name):
+                return fn(params, opt_state, ef, batch)
         obs_lib.observe_program_call(name, fn,
                                      (params, opt_state, ef, batch),
                                      wire_bytes=payload_bytes)
@@ -253,10 +264,13 @@ def _params_like(fn, state, params):
 
 def _grads(loss_of, leaves, spec, batch):
     """(loss, [gradient leaf, ...]) of `loss_of(params, batch)` by
-    autograd, in flatten order."""
+    autograd, in flatten order; the forward's and the backward's phase
+    marks before each."""
     diff = [p if p.requires_grad else p.detach().requires_grad_()
             for p in leaves]
+    marks_lib.mark("forward", leaves[0])
     loss = loss_of(tree_lib.unflatten(spec, diff), batch)
+    marks_lib.mark("backward", leaves[0])
     return loss.detach(), list(torch.autograd.grad(loss, diff))
 
 
@@ -356,15 +370,18 @@ def make_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
         leaves, spec = tree_lib.flatten(params)
         loss, g_leaves = _grads(loss_of, leaves, spec,
                                 sharding.shard_batch(batch, group))
+        marks_lib.mark("consensus", leaves[0])
         loss = _pmean(loss, group)
         e_local = [e[0] for e in tree_lib.leaves(ef)]
         grads = tree_lib.unflatten(spec, _consensus_leaves(
             g_leaves, e_local, gc, _round_idx(opt_state), group))
+        marks_lib.mark("optimizer", leaves[0])
         if clip_norm is not None:
             grads, grad_norm = clip_by_global_norm(grads, clip_norm)
         else:
             grad_norm = global_norm(grads)
         updates, new_state = opt.update(grads, opt_state, params)
+        marks_lib.mark("state_write", leaves[0])
         with torch.no_grad():
             for p, u in zip(leaves, tree_lib.leaves(updates)):
                 p.add_(u.to(p.dtype))
@@ -375,6 +392,7 @@ def make_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
                 params = shards
                 new_state = _params_like(tp.take_tree, new_state, shards)
             _into(state, new_state)
+        marks_lib.mark("step_end", leaves[0])
         return params, state, ef, {"loss": loss, "grad_norm": grad_norm}
 
     return _program(step, "dist.step", tp is None and _device_collectives(
@@ -480,6 +498,7 @@ def make_zero_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
         loss, g_leaves = _grads(loss_of, full, spec,
                                 sharding.shard_batch(batch, group))
         del full
+        marks_lib.mark("consensus", owned_leaves[0])
         loss = _pmean(loss, group)
         round_idx = _round_idx(opt_state)
 
@@ -508,6 +527,7 @@ def make_zero_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
             if e is not None:
                 e[0].copy_((u - d_own) * zero_lib.valid_mask(
                     size, padded, chunk, u.device))
+        marks_lib.mark("optimizer", owned_leaves[0])
         grad_norm = torch.sqrt(sharding.all_reduce_sum(sq_sum, group))
         owned_grads = tree_lib.unflatten(spec, owned_grads)
         if clip_norm is not None:
@@ -516,10 +536,12 @@ def make_zero_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
             owned_grads = tree_lib.map(lambda x: x * scale, owned_grads)
         updates, new_state = opt.update(owned_grads, opt_state,
                                         owned_params)
+        marks_lib.mark("state_write", owned_leaves[0])
         with torch.no_grad():
             for p, u in zip(owned_leaves, tree_lib.leaves(updates)):
                 p.add_(u.to(p.dtype))
             _into(opt_state, new_state)
+        marks_lib.mark("step_end", owned_leaves[0])
         return owned_params, opt_state, ef, {"loss": loss,
                                              "grad_norm": grad_norm}
 

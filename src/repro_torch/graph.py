@@ -53,6 +53,19 @@ are taken back off the counts, and every replay adds them again.
 `kernels.dispatch` (obs) fires where the Python runs: at the eager first
 call and at the capture, as the reference counts at trace.
 
+Set-up: a card's first call of a specialization adds the host seconds of
+its three pieces to process-wide totals by the program's `name` (the
+train steps' is the one they register under, "dist.step" or
+"dist.step.zero1"; by default fn's qualified name): the eager first run,
+up to the end of its side stream's work; the two cache releases around
+it; the capture (`capture_s` keeps each capture's time inside it).
+`setup_seconds(name)` reads them; they outlive the program. On the CPU
+the first call's eager run is its first run, and nothing is released or
+captured. While a `torch.profiler` trace is on, each call's host phases
+stand in it as labels (`obs.core.label`): `graph.fill`, `graph.replay`
+(the graph's launch), `graph.realize`, and at a first call
+`graph.first_run`, `graph.release_cache`, `graph.capture`.
+
 On the CPU there is no graph: every call copies its inputs into the
 static buffers of its (specialization, bound pointers), runs the function
 eagerly on them and clones the outputs as a replay would, so the CPU
@@ -79,6 +92,7 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.kernels import ops
+from repro_torch.obs import core as obs_lib
 
 _EAGER = [0]
 _SCALARS = {bool: torch.bool, int: torch.int64, float: torch.float32}
@@ -90,6 +104,16 @@ _SIDE_STREAMS: dict = {}
 _CACHE_SLACK = 1 << 30
 # per thread: how many Program functions are running (nested calls inline)
 _INSIDE = threading.local()
+# host seconds of first calls by (program name, piece), process-wide
+SETUP_PIECES = ("first_run", "release_cache", "capture")
+_SETUP: collections.Counter = collections.Counter()
+
+
+def setup_seconds(name: str) -> dict:
+    """Host seconds the first calls of the programs named `name` spent in
+    each piece of `SETUP_PIECES`, summed over their specializations, since
+    the process started (0.0 where none ran)."""
+    return {piece: float(_SETUP[(name, piece)]) for piece in SETUP_PIECES}
 
 
 @contextlib.contextmanager
@@ -128,6 +152,16 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     if device not in _SIDE_STREAMS:
         _SIDE_STREAMS[device] = torch.cuda.Stream(device)
     return _SIDE_STREAMS[device]
+
+
+@contextlib.contextmanager
+def _setup_piece(name: str, piece: str):
+    """The block's host seconds added to program `name`'s set-up `piece`;
+    labelled `graph.<piece>` in a running profiler's trace."""
+    t0 = time.perf_counter()
+    with obs_lib.label(f"graph.{piece}"):
+        yield
+    _SETUP[(name, piece)] += time.perf_counter() - t0
 
 
 def _release_cache(device: torch.device) -> None:
@@ -215,11 +249,13 @@ class _Graph:
 class Program:
     """`fn` as a captured program (see the module docstring). `bound`:
     keystr prefixes of the argument tuple whose tensors are bound by
-    pointer (read in place, or written in place)."""
+    pointer (read in place, or written in place). `name`: the key of its
+    set-up seconds (`setup_seconds`), by default fn's qualified name."""
 
-    def __init__(self, fn, bound=()):
+    def __init__(self, fn, bound=(), name=None):
         self.fn = fn
         self.bound = tuple(bound)
+        self.name = name or getattr(fn, "__qualname__", type(fn).__name__)
         self._keys: set = set()
         self._graphs: dict = {}        # (key, bound pointers) -> _Graph
         self._masks: dict = {}         # spec -> [leaf is bound]
@@ -258,11 +294,14 @@ class Program:
                            for x, b in zip(leaves, bound) if b))
         entry = self._graphs.get(pins)
         if entry is not None and entry.graph is not None:
-            entry.fill(leaves, bound)
-            entry.graph.replay()
+            with obs_lib.label("graph.fill"):
+                entry.fill(leaves, bound)
+            with obs_lib.label("graph.replay"):
+                entry.graph.replay()
             ops.add_launches(entry.launches)
             self.replayed.update(entry.launches)
-            return _realize(entry.plan, leaves)
+            with obs_lib.label("graph.realize"):
+                return _realize(entry.plan, leaves)
         if entry is None:
             device = next(x.device for x in leaves
                           if isinstance(x, torch.Tensor))
@@ -271,20 +310,25 @@ class Program:
             # at interpreter exit, after this module's globals are gone
             entry = _Graph(leaves, bound, device,
                            lambda _, k=pins, drop=_drop: drop(me, k))
-            full = entry.fill(leaves, bound)
+            with obs_lib.label("graph.fill"):
+                full = entry.fill(leaves, bound)
             out = self._first_run(entry, spec, full, bound, device)
             self._graphs[pins] = entry
         else:                  # the CPU: fn runs on the static buffers
-            full = entry.fill(leaves, bound)
+            with obs_lib.label("graph.fill"):
+                full = entry.fill(leaves, bound)
             out = _run(self.fn, tree_lib.unflatten(spec, full))
-        return _realize(_plan(out, full, bound), leaves)
+        with obs_lib.label("graph.realize"):
+            return _realize(_plan(out, full, bound), leaves)
 
     def _first_run(self, entry: _Graph, spec, full: list, bound: list,
                    device: torch.device):
         """fn over the static buffers, once; on the card on a side stream,
-        then captured into entry."""
+        then captured into entry. The run's seconds (on the card up to the
+        end of its work on the side stream) count to the set-up."""
         if device.type != "cuda":
-            return _run(self.fn, tree_lib.unflatten(spec, full))
+            with _setup_piece(self.name, "first_run"):
+                return _run(self.fn, tree_lib.unflatten(spec, full))
         current = torch.cuda.current_stream(device)
         side = _side_stream(device)
         # the allocator caches freed blocks per stream and pool: the side
@@ -292,12 +336,17 @@ class Program:
         # capture's private pool on either. Without handing them back
         # first, a train step's first call would hold its temporaries
         # twice (three times after an eager step)
-        _release_cache(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            out = _run(self.fn, tree_lib.unflatten(spec, full))
-        _release_cache(device)
-        self._capture(entry, spec, full, bound, side)
+        with _setup_piece(self.name, "release_cache"):
+            _release_cache(device)
+        with _setup_piece(self.name, "first_run"):
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                out = _run(self.fn, tree_lib.unflatten(spec, full))
+            side.synchronize()
+        with _setup_piece(self.name, "release_cache"):
+            _release_cache(device)
+        with _setup_piece(self.name, "capture"):
+            self._capture(entry, spec, full, bound, side)
         current.wait_stream(side)
         return out
 

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fwht", "quantpack", "quantencode", "quantdecode")
+SOURCES = ("fwht", "quantpack", "quantencode", "quantdecode", "marks")
 HEADERS = ("ndsc_common.cuh", "warp_rows.cuh", "row_fwht.cuh")
 # No --use_fast_math: the payload path relies on IEEE rounding.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,6 +51,9 @@ _SIGNATURES = {
         "ndsc_quant_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                         _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                         _F, _P],
+    },
+    "marks": {
+        "repro_mark": [_I, _P],
     },
 }
 

@@ -22,6 +22,13 @@ owning its lifetime; `suspended()` blanks the stack for a scope — how an
 overhead measurement keeps its disabled arm clean inside an enabled
 session.
 
+While a `torch.profiler` trace is on, every span also enters a
+`record_function` label of its name (`label`), so the spans stand in the
+profiler's trace beside the device's operations, on one clock; the
+program's own host phases (`graph.fill`, `graph.replay`, ...) are such
+labels alone, which emit no event. With neither a session nor a profiler,
+`span` is the shared no-op.
+
 One departure from the reference's summary: its `jax_trace` block is
 `profiler_trace` here.
 """
@@ -33,6 +40,9 @@ import os
 import threading
 import time
 from typing import Optional
+
+import torch
+from torch.autograd import profiler as _profiler
 
 from repro_torch.obs import costs as costs_lib
 from repro_torch.obs import recompile
@@ -58,9 +68,19 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+def label(name: str):
+    """A `torch.profiler.record_function` label `name` while the profiler
+    is on, else `NOOP_SPAN`: a host span on the profiler's clock that
+    emits no obs event."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return NOOP_SPAN
+
+
 class Span:
-    """A wall-clock span; emits one event on exit. Use via `obs.span(...)`."""
-    __slots__ = ("_obs", "name", "attrs", "_t0")
+    """A wall-clock span; emits one event on exit, and stands in a running
+    profiler's trace as `label(name)`. Use via `obs.span(...)`."""
+    __slots__ = ("_obs", "name", "attrs", "_t0", "_label")
 
     def __init__(self, obs: "Obs", name: str, attrs: dict):
         self._obs = obs
@@ -70,11 +90,14 @@ class Span:
     def __enter__(self):
         tls = self._obs._tls
         tls.depth = getattr(tls, "depth", 0) + 1
+        self._label = label(self.name)
+        self._label.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
+        self._label.__exit__(*exc)
         o = self._obs
         depth = o._tls.depth
         o._tls.depth = depth - 1
@@ -326,7 +349,7 @@ def reset() -> None:
 def span(name: str, **attrs):
     o = _ACTIVE
     if o is None:
-        return NOOP_SPAN
+        return label(name)
     return o.span(name, **attrs)
 
 

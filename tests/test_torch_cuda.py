@@ -21,7 +21,8 @@ card against CPU or against the per-lane calls. The captured programs
 (`repro_torch.graph`: the serve programs, the train steps, the
 federation's programs, the paper's algorithms and the democratic
 embedding; `-k graphs`, `-k train_graphs`, `-k core_graphs`) are held
-bitwise against `graph.eager()`. Two gloo ranks sharing the
+bitwise against `graph.eager()`; the train step's phase marks replay in
+order inside its graph and leave it bitwise (`-k phase_marks`). Two gloo ranks sharing the
 card (this file run as a script is one rank) hold ZeRO-1 against the
 all-gather consensus and the mesh federation against the vmap backend,
 bitwise."""
@@ -511,6 +512,70 @@ def test_cuda_train_graphs_match_the_eager_arm(cuda, kind):
     assert specs == 1
     assert _bits_equal(got, want)
     assert launches == launches_eager and max(launches.values()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["allgather_ef", "zero1"])
+def test_cuda_phase_marks_leave_the_step_bitwise(cuda, kind, monkeypatch):
+    """The captured train step with its phase marks gives the losses,
+    grad norms and state of the same step with `mark` a no-op bitwise,
+    with the same counted launches (the marks count in none)."""
+    from repro_torch.kernels import marks
+    got, launches, _ = _train_programs_run(kind, cuda)
+    monkeypatch.setattr(marks, "mark", lambda phase, like: None)
+    want, launches_bare, _ = _train_programs_run(kind, cuda)
+    assert _bits_equal(got, want)
+    assert launches == launches_bare
+
+
+@pytest.mark.cuda
+def test_cuda_phase_marks_replay_in_order(cuda, tmp_path):
+    """A captured dist.step profiled over two replays shows its six marks
+    a step in order, and the program's host labels; its first call added
+    one capture, a first run and the cache releases to the set-up of
+    "dist.step"."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs, graph
+    from repro_torch.dist import gradcomp as G
+    from repro_torch.dist import step as S
+    from repro_torch.kernels import marks
+    from repro_torch.optimizer import optim
+
+    cfg = configs.get_reduced("yi-6b")
+    gc = G.GradCompConfig()
+    opt = optim.adamw(3e-4, weight_decay=0.1)
+    step = S.make_train_step(cfg, opt, gc, clip_norm=1.0)
+    state = S.init_train_state(cfg, opt, gc, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17),
+                         generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32).to(cuda)
+    before = graph.setup_seconds("dist.step")
+    step(*state, {"tokens": toks})
+    torch.cuda.synchronize()
+    after = graph.setup_seconds("dist.step")
+    assert len(step.program.capture_s) == 1
+    assert all(after[p] > before[p] for p in graph.SETUP_PIECES)
+    assert (after["capture"] - before["capture"]
+            >= step.program.capture_s[0])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(*state, {"tokens": toks})
+        torch.cuda.synchronize()
+    assert len(step.program.capture_s) == 1
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {marks.kernel_name(p) for p in marks.PHASES}
+    seen = [e["name"] for e in sorted(
+        (e for e in events if e.get("cat") == "kernel"),
+        key=lambda e: float(e["ts"])) if e["name"] in names]
+    assert seen == [marks.kernel_name(p) for p in marks.PHASES] * 2
+    labels = {e["name"] for e in events
+              if e.get("cat") == "user_annotation"}
+    assert {"dist.step", "graph.fill", "graph.replay",
+            "graph.realize"} <= labels
 
 
 def _fed_programs_run(dev):
