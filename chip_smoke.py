@@ -68,6 +68,17 @@ prints its seconds):
         (the cluster kernel: bitwise, timed, bounded, with its device time
         and the device activities of 4 calls, the cluster kernel only, at
         most once a call) and of 2^20 (the FWHT's passes, timed);
+     g. the optimizer's kernels (csrc/optim.cu) at the 12 leaves of yi-6b
+        cut to 8 layers (the yi6b-train-* cells' tree, 1,908,477,952 f32
+        values, drawn leaf by leaf): sum_squares within 1e-6 of the f64
+        sum and repeating its bits, adamw_update with the clip's scale
+        (the launcher's AdamW) and plain sgd_update (the mixtral cell's
+        rule) bitwise their plain versions given the same scale, leaf by
+        leaf; each timed over the tree beside its plain version (and,
+        for the norm, per-leaf torch.linalg.vector_norm), bounded by its
+        bytes (kernels/cost.py), with the device activities of 4 calls
+        (one tile and one finishing kernel a sum_squares call, one kernel
+        a leaf of each update);
   4. train yi-6b at full width (d_model 4096, 32/4 heads, d_ff 11008,
      vocab 64000) cut to 4 of its 32 layers: 3 steps at the launcher's
      defaults (batch 8, seq 128, R = 4, allgather_packed, error feedback);
@@ -307,7 +318,9 @@ prints its seconds):
      steps; g. 13e (xlstm-350m), then XLSTM_TURNS pairs in turns as in
      a; h. phase 5c (chunk 65536). 11b-d's gloo ranks and 16's meshes
      stay eager: gloo's collectives are host calls a graph cannot hold;
- 12. print {"kernels": [...]} and, last, the device line.
+ 12. print {"kernels": [...]} (each kernel's launches on the path that
+     runs it, its max abs error, and its, its plain version's, the
+     library's and its bound's ms) and, last, the device line.
 
 Without CUDA it exits non-zero before printing any result. Nothing here
 imports JAX or the JAX package. `python3 chip_smoke.py --rank R --world 4
@@ -2295,6 +2308,169 @@ def time_large_encoders(ops, ref, dev, cfg, chunk: int = LARGE_CHUNK,
     return out
 
 
+# the optimizer's kernels (3g): AdamW as the launcher runs it (lr 3e-4,
+# weight decay 0.1, the clip's scale folded in), plain SGD as the mixtral
+# cell runs it (lr 0.01, no clip), at the yi6b-train-* cells' depth
+OPT_ADAMW = {"b1": 0.9, "b2": 0.95, "eps": 1e-8, "weight_decay": 0.1}
+OPT_LR, OPT_SGD_LR, OPT_STEP, OPT_LAYERS = 3e-4, 0.01, 5, 8
+
+
+def optim_tree(cfg, dev, seed: int = 0) -> dict:
+    """The optimizer's inputs at `cfg`'s leaf shapes on `dev`, f32, drawn
+    leaf by leaf: params, grads and both AdamW moments (lists), lr, the
+    bias corrections of step OPT_STEP, SGD's lr (0-d tensors)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import model as model_lib
+
+    shapes = tree_lib.leaves(model_lib.param_shapes(cfg),
+                             is_leaf=model_lib.is_shape)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(scale, positive=False):
+        out = []
+        for s in shapes:
+            x = torch.randn(s, generator=gen, device=dev)
+            out.append(x.abs_().mul_(scale) if positive else x.mul_(scale))
+        return out
+
+    step = torch.full((), float(OPT_STEP), device=dev)
+    return {"shapes": [list(s) for s in shapes],
+            "params": draw(0.02), "grads": draw(1e-3),
+            "mu": draw(1e-4), "nu": draw(1e-6, positive=True),
+            "lr": torch.full((), OPT_LR, device=dev),
+            "c1": 1 - torch.pow(torch.full((), OPT_ADAMW["b1"], device=dev),
+                                step),
+            "c2": 1 - torch.pow(torch.full((), OPT_ADAMW["b2"], device=dev),
+                                step),
+            "lr_sgd": torch.full((), OPT_SGD_LR, device=dev)}
+
+
+def optim_calls(ops, ref, t: dict, scale) -> dict:
+    """{kernel: (the kernel's call over the tree, the plain one, the
+    library's or None)}: the norm's square (per-leaf
+    torch.linalg.vector_norm, then the norm of those, beside it), AdamW
+    with `scale` (the plain one: the clip's map, then ref.adamw_update a
+    leaf), plain SGD."""
+    grads, leaves = t["grads"], list(zip(t["grads"], t["mu"], t["nu"],
+                                         t["params"]))
+    lr, c1, c2, lr_sgd = t["lr"], t["c1"], t["c2"], t["lr_sgd"]
+
+    def vector_norm():
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g, dtype=torch.float32)
+             for g in grads]))
+
+    return {
+        "sum_squares": (lambda: ops.sum_squares(grads),
+                        lambda: ref.sum_squares(grads), vector_norm),
+        "adamw_update": (
+            lambda: [ops.adamw_update(g, m, v, p, lr, c1, c2, scale,
+                                      **OPT_ADAMW) for g, m, v, p in leaves],
+            lambda: [ref.adamw_update((g * scale).to(g.dtype), m, v, p, lr,
+                                      c1, c2, None, **OPT_ADAMW)
+                     for g, m, v, p in leaves], None),
+        "sgd_update": (
+            lambda: [ops.sgd_update(g, None, p, lr_sgd, momentum=0.0,
+                                    nesterov=False)
+                     for g, _, _, p in leaves],
+            lambda: [ref.sgd_update(g, None, p, lr_sgd, momentum=0.0,
+                                    nesterov=False)
+                     for g, _, _, p in leaves], None)}
+
+
+def check_optim_kernels(ops, ref, t: dict) -> dict:
+    """3g's checks on the tree `t` (optim_tree): sum_squares within 1e-6
+    of the f64 sum of the same values and the same bits on a second call;
+    AdamW with the clip's scale (from that norm) and plain SGD bitwise
+    their plain versions given the same scale, leaf by leaf (the whole
+    tree's outputs twice would not fit beside its inputs). Returns the
+    scale and the norm's errors."""
+    from repro_torch.optimizer import optim
+
+    grads = t["grads"]
+    a, b = ops.sum_squares(grads), ops.sum_squares(grads)
+    want = sum(float(torch.sum(g.double().square())) for g in grads)
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError(f"3g: sum_squares gave {float(a)}, then "
+                             f"{float(b)}")
+    rel = abs(float(a) / want - 1.0)
+    if rel > 1e-6:
+        raise AssertionError(f"3g: sum_squares {float(a)} against the f64 "
+                             f"sum {want}")
+    scale = optim.clip_scale(torch.sqrt(a), 1.0)
+    lr, c1, c2, lr_sgd = t["lr"], t["c1"], t["c2"], t["lr_sgd"]
+    for i, (g, m, v, p) in enumerate(zip(grads, t["mu"], t["nu"],
+                                         t["params"])):
+        pairs = {
+            "adamw_update": (
+                ops.adamw_update(g, m, v, p, lr, c1, c2, scale, **OPT_ADAMW),
+                ref.adamw_update((g * scale).to(g.dtype), m, v, p, lr, c1,
+                                 c2, None, **OPT_ADAMW)),
+            "sgd_update": (
+                ops.sgd_update(g, None, p, lr_sgd, momentum=0.0,
+                               nesterov=False),
+                ref.sgd_update(g, None, p, lr_sgd, momentum=0.0,
+                               nesterov=False))}
+        for name, (x, y) in pairs.items():
+            for u, w in zip(x, y):
+                if (u is None) != (w is None) or (
+                        u is not None and not bitwise(u, w)):
+                    raise AssertionError(f"3g: {name} differs from its "
+                                         f"plain version at leaf {i} "
+                                         f"{tuple(g.shape)}")
+        del pairs, x, y
+    return {"scale": float(scale), "sum_squares_rel_err": rel,
+            "sum_squares_abs_err": abs(float(a) - want), "scale_t": scale}
+
+
+def time_optim_kernels(ops, ref, dev, cfg) -> dict:
+    """3g: the optimizer's kernels at `cfg`'s leaf shapes (optim_tree):
+    checked (check_optim_kernels), then the kernel, its plain version and
+    (for the norm) the library's per-leaf vector_norm timed over the
+    whole tree (CUDA events, medians of 5; plain of 3), with the bound
+    (kernels/cost.py at the card's memory rate) and its share; the
+    device activities of ROW_CALLS calls, which must be one tile kernel
+    and one finishing kernel a sum_squares call (12 leaves) and one
+    kernel a leaf of each update."""
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.optim import MAX_LEAVES
+
+    t = optim_tree(cfg, dev)
+    n = sum(g.numel() for g in t["grads"])
+    checked = check_optim_kernels(ops, ref, t)
+    scale = checked.pop("scale_t")
+    calls = optim_calls(ops, ref, t, scale)
+    costs = {"sum_squares": kcost.sum_squares(n, 4 * n),
+             "adamw_update": kcost.adamw_update(n, 4, 4, True),
+             "sgd_update": kcost.sgd_update(n, 4, 4, False, False, False)}
+    k = len(t["grads"])
+    want_kernels = {"sum_squares": (-(-k // MAX_LEAVES) + 1,
+                                    ("sum_squares_tile",
+                                     "sum_squares_finish")),
+                    "adamw_update": (k, ("adamw_update_kernel",)),
+                    "sgd_update": (k, ("sgd_update_kernel",))}
+    out = {"values": n, "leaves": k, "shapes": t["shapes"], **checked}
+    for name, (kernel, plain, library) in calls.items():
+        b, by = bound_ms(*costs[name])
+        ms = timed(kernel)
+        acts = device_activities(kernel)
+        per_call, names = want_kernels[name]
+        if len(acts) != per_call * ROW_CALLS or not all(
+                any(x in a for x in names) for a in acts):
+            raise AssertionError(f"3g: {ROW_CALLS} {name} calls ran {acts}, "
+                                 f"want {per_call} of {names} a call")
+        out[name] = {"ms": ms, "plain_ms": timed(plain, 3),
+                     "library_ms": timed(library) if library else None,
+                     "bound_ms": b, "bound_by": by, "share_of_bound": b / ms,
+                     "device_kernels_per_call": len(acts) / ROW_CALLS,
+                     "max_abs_err": (checked["sum_squares_abs_err"]
+                                     if name == "sum_squares" else 0.0)}
+    del t, calls, scale
+    torch.cuda.empty_cache()
+    return out
+
+
 def cluster_fits() -> dict:
     """1: the clusters of 2, 4, 8 and 16 CTAs of the encoders' cluster
     kernel that fit on the card at once (16: non-portable), or the error
@@ -2511,10 +2687,14 @@ def one_rank_phase(dev, cfg4, gc_ef) -> dict:
                                          "inside graph.eager()")
                 del st, st_e, fn
                 torch.cuda.empty_cache()
+            # the optimizer: one sum_squares over the tree, one
+            # adamw_update a leaf
+            opt_launches = {"sum_squares": 1, "adamw_update": 12}
             want = {"alltoall_zero1": {"encode": 12, "unpack_dequant": 24,
-                                       "fwht": 24},
+                                       "fwht": 24, **opt_launches},
                     "allgather_packed": {"encode_ef": 12,
-                                         "unpack_dequant": 12, "fwht": 12}}
+                                         "unpack_dequant": 12, "fwht": 12,
+                                         **opt_launches}}
             for strategy, (_, _, counts) in res.items():
                 if counts != want[strategy]:
                     raise AssertionError(f"11a: {strategy} launches {counts}")
@@ -3677,7 +3857,7 @@ def train_obs_phase(dev, cfg, gc, steps: int = 2) -> dict:
     """14d: `steps` train steps of `cfg` (phase 4's size and launcher
     optimizer) with obs on, bitwise the same steps with obs off from the
     same state; dist.payload_bytes per step equal to wire_bytes_tree's
-    payload; 12 launches per kernel per step, and kernels.dispatch equal
+    payload; 12 launches per codec kernel per step, and kernels.dispatch equal
     to what the step's Python ran: its launches, less those its graph
     replayed, plus those its capture recorded (the first step runs
     eagerly and captures: 24 dispatches; a replay dispatches none)."""
@@ -3686,6 +3866,7 @@ def train_obs_phase(dev, cfg, gc, steps: int = 2) -> dict:
     from repro_torch.data.pipeline import batch_for_shape
     from repro_torch.dist import step as step_lib
     from repro_torch.dist.gradcomp import wire_bytes_tree
+    from repro_torch.kernels import ops
     from repro_torch.optimizer.optim import adamw, warmup_cosine
 
     def run(observe: bool):
@@ -3702,7 +3883,7 @@ def train_obs_phase(dev, cfg, gc, steps: int = 2) -> dict:
                 g0 = (collections.Counter(fn.program.replayed),
                       collections.Counter(fn.program.captured))
                 (p, o, ef, m), launches = _counted(
-                    lambda: fn(p, o, ef, batch))
+                    lambda: fn(p, o, ef, batch), tuple(ops.KERNELS))
                 torch.cuda.synchronize()
                 losses.append(float(m["loss"]))
                 if session:
@@ -3717,7 +3898,7 @@ def train_obs_phase(dev, cfg, gc, steps: int = 2) -> dict:
                     ran = {k: launches[k]
                            - (fn.program.replayed[k] - g0[0][k])
                            + (fn.program.captured[k] - g0[1][k])
-                           for k in EF_KERNELS}
+                           for k in launches}
                     per_step.append({"dispatch": got, "launches": launches,
                                      "ran": ran, "payload_bytes": payload})
         finally:
@@ -3736,7 +3917,8 @@ def train_obs_phase(dev, cfg, gc, steps: int = 2) -> dict:
     for s, r in enumerate(per_step):
         if r["payload_bytes"] != [float(audit)]:
             raise AssertionError(f"14d: step {s} payload {r}, audit {audit}")
-        if r["launches"] != {k: 12 for k in EF_KERNELS} or \
+        if {k: r["launches"][k] for k in EF_KERNELS} != {
+                k: 12 for k in EF_KERNELS} or \
                 r["dispatch"] != {k: n for k, n in r["ran"].items() if n}:
             raise AssertionError(f"14d: step {s}: {r}")
     out = {"losses": on_losses, "payload_bytes_per_step": audit,
@@ -4531,6 +4713,15 @@ def main() -> int:
     large_encoders[f"chunk {PASS_CHUNK}"] = enc
     clock.done("3f FWHT and encoders above N = 8192")
 
+    # -- 3g. the optimizer's kernels at the yi6b-train-* cells' leaves -------
+    optim_kernels = time_optim_kernels(
+        ops, ref, dev, dataclasses.replace(full, num_layers=OPT_LAYERS))
+    for name in ("sum_squares", "adamw_update", "sgd_update"):
+        log(json.dumps({"kernel": name, **optim_kernels[name],
+                        "shapes": f"yi-6b x{OPT_LAYERS} layers, "
+                                  f"{optim_kernels['leaves']} leaves"}))
+    clock.done("3g optimizer kernels at yi-6b x8")
+
     # -- 4. the main path: full-width yi-6b, 4 layers, launcher defaults -----
     per_step = []
 
@@ -4782,6 +4973,15 @@ def main() -> int:
         results[f"{name}/cluster"] = cluster[name]
         names[f"{name}/cluster"] = (names[name][0], names[name][1],
                                     {f"{name}/cluster": launched})
+    # the optimizer's kernels, timed by 3g: sum_squares and adamw_update
+    # launched by phase 4's training, sgd_update by 13b's (mixtral, SGD)
+    for name, replaces, counts in (
+            ("sum_squares", "src/repro/optimizer/optim.py:55", main_counts),
+            ("adamw_update", "src/repro/optimizer/optim.py:87", main_counts),
+            ("sgd_update", "src/repro/optimizer/optim.py:119",
+             moe_train["launches"])):
+        results[name] = optim_kernels[name]
+        names[name] = ("src/repro_torch/csrc/optim.cu", replaces, counts)
     kernels = []
     for name, (src, replaces, counts) in names.items():
         if not counts[name]:
@@ -4802,6 +5002,7 @@ def main() -> int:
               "small_serve": small_serve, "algorithms": algorithms,
               "codecs": codec_numbers, "federation": fed_numbers,
               "quantize_pack_ratq_train": ratq_pack,
+              "optim_kernels": optim_kernels,
               "large_n": {"fwht": large_fwht, "encoders": large_encoders,
                           "cluster_fit": cluster_fit,
                           "train_x1_chunk16384": train_chunk,

@@ -92,11 +92,12 @@ from repro_torch.dist import gradcomp as G
 from repro_torch.dist import sharding
 from repro_torch.dist import zero as zero_lib
 from repro_torch.kernels import marks as marks_lib
+from repro_torch.kernels import ops
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
 from repro_torch.obs import core as obs_lib
 from repro_torch.obs import recompile as recompile_lib
-from repro_torch.optimizer.optim import clip_by_global_norm, global_norm
+from repro_torch.optimizer.optim import clip_scale, global_norm
 
 # a train step's arguments (params, opt_state, ef, batch): the state it
 # updates in place, bound by pointer when the step is captured
@@ -376,11 +377,11 @@ def make_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
         grads = tree_lib.unflatten(spec, _consensus_leaves(
             g_leaves, e_local, gc, _round_idx(opt_state), group))
         marks_lib.mark("optimizer", leaves[0])
-        if clip_norm is not None:
-            grads, grad_norm = clip_by_global_norm(grads, clip_norm)
-        else:
-            grad_norm = global_norm(grads)
-        updates, new_state = opt.update(grads, opt_state, params)
+        grad_norm = global_norm(grads)
+        scale = None if clip_norm is None else clip_scale(grad_norm,
+                                                          clip_norm)
+        updates, new_state = opt.update(grads, opt_state, params,
+                                        scale=scale)
         marks_lib.mark("state_write", leaves[0])
         with torch.no_grad():
             for p, u in zip(leaves, tree_lib.leaves(updates)):
@@ -505,8 +506,6 @@ def make_zero_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
         e_leaves = (tree_lib.flatten_up_to(spec, ef) if gc.uses_ef
                     else [None] * len(g_leaves))
         owned_grads = []
-        sq_sum = torch.zeros((), dtype=torch.float32,
-                             device=g_leaves[0].device)
         for i, (e, (size, shape, dtype, (padded, rows))) in enumerate(
                 zip(e_leaves, infos)):
             g, g_leaves[i] = g_leaves[i], None
@@ -523,19 +522,17 @@ def make_zero_train_step(cfg, opt, gc: G.GradCompConfig, group=None,
                    * chunk + torch.arange(chunk, device=u.device)[None, :])
             mean_own = mean_own * (pos < size).to(torch.float32)
             owned_grads.append(mean_own)
-            sq_sum = sq_sum + torch.sum(torch.square(mean_own))
             if e is not None:
                 e[0].copy_((u - d_own) * zero_lib.valid_mask(
                     size, padded, chunk, u.device))
         marks_lib.mark("optimizer", owned_leaves[0])
-        grad_norm = torch.sqrt(sharding.all_reduce_sum(sq_sum, group))
+        grad_norm = torch.sqrt(sharding.all_reduce_sum(
+            ops.sum_squares(owned_grads), group))
         owned_grads = tree_lib.unflatten(spec, owned_grads)
-        if clip_norm is not None:
-            scale = torch.clamp(clip_norm / torch.clamp_min(grad_norm, 1e-12),
-                                max=1.0)
-            owned_grads = tree_lib.map(lambda x: x * scale, owned_grads)
+        scale = None if clip_norm is None else clip_scale(grad_norm,
+                                                          clip_norm)
         updates, new_state = opt.update(owned_grads, opt_state,
-                                        owned_params)
+                                        owned_params, scale=scale)
         marks_lib.mark("state_write", owned_leaves[0])
         with torch.no_grad():
             for p, u in zip(owned_leaves, tree_lib.leaves(updates)):

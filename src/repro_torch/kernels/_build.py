@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fwht", "quantpack", "quantencode", "quantdecode", "marks")
+SOURCES = ("fwht", "quantpack", "quantencode", "quantdecode", "marks",
+           "optim")
 HEADERS = ("ndsc_common.cuh", "warp_rows.cuh", "row_fwht.cuh")
 # No --use_fast_math: the payload path relies on IEEE rounding.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,6 +55,13 @@ _SIGNATURES = {
     },
     "marks": {
         "repro_mark": [_I, _P],
+    },
+    "optim": {
+        "repro_sum_squares": [_P, _P, _P, _I, _P, _I64, _P, _P],
+        "repro_adamw_update": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I64, _P,
+                               _P, _P, _P, _F, _F, _F, _F, _F, _F, _P],
+        "repro_sgd_update": [_P, _I, _P, _P, _P, _I, _I64, _P, _P, _I, _F,
+                             _P],
     },
 }
 

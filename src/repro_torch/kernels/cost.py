@@ -1,4 +1,5 @@
-"""Bytes and operations of one call of each kernel, from its shapes.
+"""Bytes and operations of one call of each kernel, from its shapes (and
+item sizes, for the optimizer's kernels).
 
 The least work a call must do: each input read once, each output written
 once, and the arithmetic of the transform, over coordinates (`coords`
@@ -65,6 +66,30 @@ def quant_decode_attention(b: int, k: int, g: int, dh: int, bits: int,
     return nbytes, flops
 
 
+def sum_squares(coords: int, nbytes: int) -> tuple:
+    """Read every value once (`nbytes` in all); a square and an add
+    each."""
+    return nbytes, coords * 2
+
+
+def adamw_update(coords: int, g_bytes: int, p_bytes: int,
+                 clip: bool) -> tuple:
+    """Read g, mu, nu (f32) and p, write mu', nu' (f32) and u (p's dtype);
+    the two moments (7), the bias corrections, root, eps, division, decay
+    and lr (8), the clip's multiply."""
+    return coords * (g_bytes + 16 + 2 * p_bytes), coords * (15 + clip)
+
+
+def sgd_update(coords: int, g_bytes: int, p_bytes: int, momentum: bool,
+               nesterov: bool, clip: bool) -> tuple:
+    """Read g (and the velocity), write u in p's dtype (and the velocity);
+    lr's multiply, the velocity's two operations, Nesterov's two more, the
+    clip's multiply."""
+    ops = 1 + (2 if momentum else 0) + (2 if momentum and nesterov else 0)
+    return (coords * (g_bytes + p_bytes + (8 if momentum else 0)),
+            coords * (ops + clip))
+
+
 def program_cost(op: str, args, kwargs, static) -> tuple:
     """(bytes, operations) of one `kernels.<op>` call from its arguments'
     shapes and its static tag (("bits", b, ...), as `kernels.ops` records
@@ -95,4 +120,18 @@ def program_cost(op: str, args, kwargs, static) -> tuple:
         b, k, g, dh = args[0].shape
         return quant_decode_attention(b, k, g, dh, bits,
                                       b * args[1].shape[1])
+    if op == "sum_squares":
+        return sum_squares(sum(math.prod(x.shape) for x in args[0]),
+                           sum(math.prod(x.shape) * x.itemsize
+                               for x in args[0]))
+    if op == "adamw_update":
+        g, p, scale = args[0], args[3], args[7]
+        return adamw_update(math.prod(g.shape), g.itemsize, p.itemsize,
+                            scale is not None)
+    if op == "sgd_update":
+        g, p, scale = args[0], args[2], args[4]
+        kw = kwargs or {}
+        return sgd_update(math.prod(g.shape), g.itemsize, p.itemsize,
+                          bool(kw.get("momentum")),
+                          bool(kw.get("nesterov")), scale is not None)
     raise ValueError(f"no cost model for kernel {op!r}")

@@ -1,4 +1,4 @@
-"""Dispatch of the codec ops by the tensor's device.
+"""Dispatch of the codec and optimizer ops by the tensor's device.
 
 A CPU tensor runs the plain PyTorch version (`kernels.ref`), and so does a
 `meta` tensor, which has shapes and no values (the dry-run traces the
@@ -9,8 +9,14 @@ the encoders take every power-of-two N on the card: one launch up to 2^15,
 hand-written passes above (`kernels.fwht.fwht_plan`). There is no switch
 and no fallback: unlike `repro.kernels.ops`, nothing here
 quietly swaps in the reference on the accelerator. All six TPU kernels have
-a CUDA counterpart; each CUDA wrapper counts its launches
-(`launch_counts`).
+a CUDA counterpart; each CUDA wrapper counts its calls
+(`launch_counts`: one a call, though a call of the FWHT's or the
+encoders' passes, or of `sum_squares`, runs several kernels on the
+device). The optimizer's three ops (`sum_squares`,
+`adamw_update`, `sgd_update`: `kernels/optim.py`) have no TPU kernel
+behind them (XLA fuses the reference's tree maps); they take the same
+route: the plain tree maps a leaf at a time on the CPU and on `meta`
+tensors, the kernels of `csrc/optim.cu` on the card.
 
 Observability (`repro_torch.obs`), with the reference's names: every
 dispatch adds to the `kernels.dispatch` counter (attrs: op, path "cuda" for
@@ -30,6 +36,8 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fwht import fwht_cuda
+from repro_torch.kernels.optim import (adamw_update_cuda, sgd_update_cuda,
+                                       sum_squares_cuda)
 from repro_torch.kernels.quantdecode import quant_decode_attention_cuda
 from repro_torch.kernels.quantencode import encode_cuda, encode_ef_cuda
 from repro_torch.kernels.quantpack import (quantize_pack_cuda,
@@ -39,11 +47,14 @@ from repro_torch.obs import core as obs
 KERNELS = {"encode": encode_cuda, "encode_ef": encode_ef_cuda,
            "unpack_dequant": unpack_dequant_cuda, "fwht": fwht_cuda,
            "quantize_pack": quantize_pack_cuda,
-           "quant_decode_attention": quant_decode_attention_cuda}
+           "quant_decode_attention": quant_decode_attention_cuda,
+           "sum_squares": sum_squares_cuda, "adamw_update": adamw_update_cuda,
+           "sgd_update": sgd_update_cuda}
 
 
 def launch_counts() -> dict:
-    """Launches of each CUDA kernel wrapper since the last reset."""
+    """Calls of each CUDA kernel wrapper since the last reset (and those a
+    replayed graph recorded)."""
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
@@ -199,3 +210,48 @@ def quant_decode_attention(q: torch.Tensor, kw: torch.Tensor,
                 (q.contiguous(), kw.contiguous(), ks.contiguous(),
                  vw.contiguous(), vs.contiguous(),
                  kv_len.to(torch.int32).contiguous()), kw_, static)
+
+
+def sum_squares(leaves: list) -> torch.Tensor:
+    """Σ x² over every value of `leaves` (f32, bf16 or f16), a 0-d f32
+    tensor: the global norm's square. On the card one call over all the
+    leaves (one count in `launch_counts`: its tile kernels and its
+    finishing kernel); its sum runs in another order than the plain
+    version's."""
+    n = sum(x.numel() for x in leaves)
+    if _on_cpu(leaves[0]):
+        return _run("sum_squares", "ref", n, _ref.sum_squares, (leaves,))
+    return _run("sum_squares", "cuda", n, sum_squares_cuda, (leaves,))
+
+
+def adamw_update(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                 p: torch.Tensor, lr: torch.Tensor, c1: torch.Tensor,
+                 c2: torch.Tensor, scale: torch.Tensor | None = None, *,
+                 b1: float, b2: float, eps: float,
+                 weight_decay: float) -> tuple:
+    """One AdamW step over a leaf, g × `scale` first where one is given:
+    (u in p's dtype, mu', nu'), bitwise equal either way. lr, c1, c2 and
+    scale are 0-d f32 tensors on the leaf's device."""
+    kw = {"b1": b1, "b2": b2, "eps": eps, "weight_decay": weight_decay}
+    args = (g, mu, nu, p, lr, c1, c2, scale)
+    if _on_cpu(g):
+        return _run("adamw_update", "ref", g.numel(), _ref.adamw_update,
+                    args, kw)
+    return _run("adamw_update", "cuda", g.numel(), adamw_update_cuda, args,
+                kw)
+
+
+def sgd_update(g: torch.Tensor, vel: torch.Tensor | None, p: torch.Tensor,
+               lr: torch.Tensor, scale: torch.Tensor | None = None, *,
+               momentum: float, nesterov: bool) -> tuple:
+    """One SGD step over a leaf (plain where momentum is 0, else with the
+    velocity, Nesterov's if asked), g × `scale` first where one is given:
+    (u in p's dtype, vel' or None), bitwise equal either way."""
+    kw = {"momentum": momentum, "nesterov": nesterov}
+    static = ("momentum", momentum, "nesterov", nesterov)
+    args = (g, vel, p, lr, scale)
+    if _on_cpu(g):
+        return _run("sgd_update", "ref", g.numel(), _ref.sgd_update, args,
+                    kw, static)
+    return _run("sgd_update", "cuda", g.numel(), sgd_update_cuda, args, kw,
+                static)

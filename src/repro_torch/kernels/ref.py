@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the codec kernels (the oracles).
+"""Plain PyTorch versions of the codec and optimizer kernels (the
+oracles).
 
 These define the semantics the CUDA kernels in `repro_torch/csrc/` must
 meet, and they are what `kernels.ops` runs on a CPU tensor. Each op repeats
@@ -11,6 +12,11 @@ divided by a Python scalar may run as a multiply by the reciprocal on CUDA
 (so divisors are tensors on the operand's device, see `_div`), and torch
 has no full uint32 arithmetic (so packing runs in int64 and wraps to int32
 explicitly).
+
+The optimizer's ops (`sum_squares`, `adamw_update`, `sgd_update`) are the
+global norm's sum and the update rules of `repro_torch.optimizer.optim`
+as its tree maps ran them, one leaf at a time and operator for operator,
+so they give those maps' bits.
 """
 from __future__ import annotations
 
@@ -156,3 +162,48 @@ def quant_decode_attention(q: torch.Tensor, kw: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bckd->bkgd", p, vd)
     return fwht(out) if inv_rotate_v else out
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
+    """g × the clip scale, rounded to g's dtype (`clip_by_global_norm`'s
+    map); g itself without a scale."""
+    return g if scale is None else (g * scale).to(g.dtype)
+
+
+def sum_squares(leaves) -> torch.Tensor:
+    """Σ x² over every value of `leaves`, in f32: each leaf's sum, added
+    leaf after leaf (the global norm's square)."""
+    total = 0
+    for x in leaves:
+        total = total + torch.sum(torch.square(x.to(torch.float32)))
+    return total
+
+
+def adamw_update(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                 p: torch.Tensor, lr: torch.Tensor, c1: torch.Tensor,
+                 c2: torch.Tensor, scale: torch.Tensor | None = None, *,
+                 b1: float, b2: float, eps: float,
+                 weight_decay: float) -> tuple:
+    """One AdamW step over a leaf (the moments first, then the update with
+    decoupled weight decay; c1, c2 the bias corrections): (u in p's dtype,
+    mu', nu')."""
+    g = _clipped(g, scale)
+    m = b1 * mu + (1 - b1) * g.float()
+    v = b2 * nu + (1 - b2) * torch.square(g.float())
+    m_hat, v_hat = m / c1, v / c2
+    u = -lr * (m_hat / (torch.sqrt(v_hat) + eps) + weight_decay * p.float())
+    return u.to(p.dtype), m, v
+
+
+def sgd_update(g: torch.Tensor, vel: torch.Tensor | None, p: torch.Tensor,
+               lr: torch.Tensor, scale: torch.Tensor | None = None, *,
+               momentum: float, nesterov: bool) -> tuple:
+    """One SGD step over a leaf, plain, with momentum or Nesterov's: (u in
+    p's dtype, vel' or None without momentum)."""
+    g = _clipped(g, scale)
+    if not momentum:
+        return (-lr * g.float()).to(p.dtype), None
+    v = momentum * vel + g.float()
+    if nesterov:
+        return (-lr * (momentum * v + g.float())).to(p.dtype), v
+    return (-lr * v).to(p.dtype), v

@@ -8,6 +8,14 @@ Same (init, update) contract and the same update order as the reference:
     updates, opt_state = opt.update(grads, opt_state, params)
     params = apply_updates(params, updates)
 
+`update` also takes the clip's factor, `scale=` (a 0-d tensor, as
+`clip_scale` gives it): the gradients are multiplied by it inside the
+update, as `clip_by_global_norm` would first (the train steps pass it and
+never build the clipped tree). The global norm and each leaf's update run
+through `kernels.ops` (`sum_squares`, `adamw_update`, `sgd_update`): on a
+CPU or `meta` tensor the plain maps, on the card one kernel a leaf
+(`csrc/optim.cu`).
+
 `torch.optim.AdamW` is not used: it applies weight decay to the parameter
 before the moment step, which is a different update.
 States are dicts of tensors plus an int32 `step` tensor.
@@ -21,6 +29,7 @@ from typing import Callable, Union
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.kernels import ops
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 ScalarOrSchedule = Union[float, Schedule]
@@ -66,15 +75,17 @@ def warmup_cosine(peak: float, warmup_steps: int, total_steps: int,
 # Gradient clipping
 # ---------------------------------------------------------------------------
 def global_norm(tree) -> torch.Tensor:
-    total = 0
-    for x in tree_lib.leaves(tree):
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
-    return torch.sqrt(total)
+    return torch.sqrt(ops.sum_squares(tree_lib.leaves(tree)))
+
+
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The clip's factor min(1, max_norm / max(norm, 1e-12)), 0-d."""
+    return torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
 
 
 def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return tree_lib.map(lambda x: (x * scale).to(x.dtype), tree), norm
 
 
@@ -84,7 +95,7 @@ def clip_by_global_norm(tree, max_norm: float):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable
-    update: Callable  # (grads, state, params) -> (updates, state)
+    update: Callable  # (grads, state, params, scale=None) -> (updates, state)
 
 
 def apply_updates(params, updates):
@@ -94,6 +105,12 @@ def apply_updates(params, updates):
 def _zeros_like_f32(params):
     return tree_lib.map(
         lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+
+
+def _unzip(spec, outs: list, k: int) -> tuple:
+    """k trees of `spec` from the per-leaf k-tuples `outs`."""
+    return tuple(tree_lib.unflatten(spec, [o[i] for o in outs])
+                 for i in range(k))
 
 
 def _step0(params) -> torch.Tensor:
@@ -107,24 +124,18 @@ def adamw(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.95,
         return {"mu": _zeros_like_f32(params), "nu": _zeros_like_f32(params),
                 "step": _step0(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, scale=None):
         step = state["step"] + 1
         lr_t = _lr_at(lr, step)
-        mu = tree_lib.map(lambda m, g: b1 * m + (1 - b1) * g.float(),
-                          state["mu"], grads)
-        nu = tree_lib.map(lambda v, g: b2 * v + (1 - b2) * torch.square(
-            g.float()), state["nu"], grads)
         stepf = step.to(torch.float32)
         c1 = 1 - torch.pow(_f32(b1, step), stepf)
         c2 = 1 - torch.pow(_f32(b2, step), stepf)
-
-        def upd(m, v, p):
-            m_hat, v_hat = m / c1, v / c2
-            u = -lr_t * (m_hat / (torch.sqrt(v_hat) + eps)
-                         + weight_decay * p.float())
-            return u.to(p.dtype)
-
-        updates = tree_lib.map(upd, mu, nu, params)
+        g, spec = tree_lib.flatten(grads)
+        outs = [ops.adamw_update(*leaf, lr_t, c1, c2, scale, b1=b1, b2=b2,
+                                 eps=eps, weight_decay=weight_decay)
+                for leaf in zip(g, *(tree_lib.flatten_up_to(spec, t) for t in
+                                     (state["mu"], state["nu"], params)))]
+        updates, mu, nu = _unzip(spec, outs, 3)
         return updates, {"mu": mu, "nu": nu, "step": step}
 
     return Optimizer(init, update)
@@ -138,22 +149,19 @@ def sgd(lr: ScalarOrSchedule, momentum: float = 0.0,
             state["vel"] = _zeros_like_f32(params)
         return state
 
-    def update(grads, state, params):
+    def update(grads, state, params, scale=None):
         step = state["step"] + 1
         lr_t = _lr_at(lr, step)
+        g, spec = tree_lib.flatten(grads)
+        vel = (tree_lib.flatten_up_to(spec, state["vel"]) if momentum
+               else [None] * len(g))
+        outs = [ops.sgd_update(g_, v, p, lr_t, scale, momentum=momentum,
+                               nesterov=nesterov)
+                for g_, v, p in zip(g, vel,
+                                    tree_lib.flatten_up_to(spec, params))]
+        updates, vel = _unzip(spec, outs, 2)
         if not momentum:
-            updates = tree_lib.map(
-                lambda g, p: (-lr_t * g.float()).to(p.dtype), grads, params)
             return updates, {"step": step}
-        vel = tree_lib.map(lambda v, g: momentum * v + g.float(),
-                           state["vel"], grads)
-        if nesterov:
-            updates = tree_lib.map(
-                lambda v, g, p: (-lr_t * (momentum * v + g.float())
-                                 ).to(p.dtype), vel, grads, params)
-        else:
-            updates = tree_lib.map(lambda v, p: (-lr_t * v).to(p.dtype),
-                                   vel, params)
         return updates, {"step": step, "vel": vel}
 
     return Optimizer(init, update)

@@ -19,6 +19,8 @@ from repro.kernels import quantpack as qp_kernel
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fwht import fwht_cuda
+from repro_torch.kernels.optim import (adamw_update_cuda, sgd_update_cuda,
+                                       sum_squares_cuda)
 from repro_torch.kernels.quantdecode import quant_decode_attention_cuda
 from repro_torch.kernels.quantencode import encode_cuda, encode_ef_cuda
 from repro_torch.kernels.quantpack import (quantize_pack_cuda,
@@ -197,8 +199,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         quant_decode_attention_cuda(
             torch.zeros(1, 2, 4, 64), words, torch.ones(1, 3, 2), words,
             torch.ones(1, 3, 2), torch.ones(1, dtype=torch.int32), bits=8)
+    one = torch.ones(())
+    with pytest.raises(ValueError, match="CUDA"):
+        sum_squares_cuda([x])
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw_update_cuda(x, x, x, x, one, one, one, b1=0.9, b2=0.95,
+                          eps=1e-8, weight_decay=0.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        sgd_update_cuda(x, None, x, one, momentum=0.0, nesterov=False)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
-    assert len(ops.KERNELS) == 6
+    assert len(ops.KERNELS) == 9
 
 
 def test_cpu_dispatch_counts_no_launch():

@@ -535,7 +535,8 @@ def test_sentinel_verdicts_equal_the_reference(case):
 # the reference's extra specialization on a train step's first call
 FIRST_CALL_PLACEMENT = {"dist.step": 1}
 PUBLIC_OPS = ("fwht", "quantize_pack", "unpack_dequant", "encode",
-              "encode_ef", "quant_decode_attention")
+              "encode_ef", "quant_decode_attention", "sum_squares",
+              "adamw_update", "sgd_update")
 INT_COUNTERS = ("fed.rounds", "fed.wire_bytes", "fed.analytic_bytes",
                 "fed.stragglers", "fed.reallocs", "dist.payload_bytes",
                 "serve.tokens", "serve.submitted", "serve.prefix.hit",
