@@ -1,13 +1,15 @@
 """Architecture registry (port of `repro.configs`): the ten configs of the
-reference, each citing its source paper or model card. `get(name)` returns
-the full ModelConfig, `get_reduced(name)` the ≤2-layer smoke variant the
-CPU tests use."""
+reference (`ARCH_NAMES`), and the port's own beyond them (`PORT_NAMES`),
+each citing its source paper or model card. `get(name)` returns the full
+ModelConfig, `get_reduced(name)` the small smoke variant the CPU tests
+use (≤2 layers; one period of the layer pattern where it has one)."""
 from __future__ import annotations
 
 from repro_torch.configs import (arctic_480b, hubert_xlarge, hymba_1_5b,
-                                 llama3_2_3b, mistral_large_123b,
-                                 mixtral_8x22b, phi3_mini_3_8b, pixtral_12b,
-                                 xlstm_350m, yi_6b)
+                                 llama3_2_3b, mellum2_12b_a2_5b,
+                                 mistral_large_123b, mixtral_8x22b,
+                                 phi3_mini_3_8b, pixtral_12b, xlstm_350m,
+                                 yi_6b)
 from repro_torch.configs.shapes import (SHAPES, InputShape, applicable,
                                         input_specs)
 
@@ -24,19 +26,27 @@ _MODULES = {
     "xlstm-350m": xlstm_350m,
 }
 
-ARCH_NAMES = tuple(_MODULES)
+ARCH_NAMES = tuple(_MODULES)                # the reference's ten
+_PORT_MODULES = {
+    "mellum2-12b-a2.5b": mellum2_12b_a2_5b,
+}
+PORT_NAMES = tuple(_PORT_MODULES)           # the port's own
+ALL_NAMES = ARCH_NAMES + PORT_NAMES
 
-__all__ = ["ARCH_NAMES", "SHAPES", "InputShape", "applicable", "get",
-           "get_reduced", "input_specs"]
+__all__ = ["ALL_NAMES", "ARCH_NAMES", "PORT_NAMES", "SHAPES", "InputShape",
+           "applicable", "get", "get_reduced", "input_specs"]
+
+
+def _module(name: str):
+    found = _MODULES.get(name) or _PORT_MODULES.get(name)
+    if found is None:
+        raise KeyError(f"unknown arch {name!r}; known: {ALL_NAMES}")
+    return found
 
 
 def get(name: str):
-    if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
-    return _MODULES[name].config()
+    return _module(name).config()
 
 
 def get_reduced(name: str):
-    if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
-    return _MODULES[name].reduced()
+    return _module(name).reduced()

@@ -45,7 +45,9 @@ def applicable(cfg, shape: InputShape) -> tuple[bool, str]:
     """(runs?, reason-if-skipped)."""
     if shape.mode == "decode":
         if not cfg.decode_supported:
-            return False, "encoder-only: no autoregressive decode"
+            return False, ("encoder-only: no autoregressive decode"
+                           if cfg.block == "encoder"
+                           else cfg.decode_refusal)
         if shape.name == "long_500k" and not cfg.subquadratic:
             return False, ("pure full attention: O(s²) at 524k infeasible; "
                            "needs sliding-window/recurrent mixing")

@@ -21,8 +21,16 @@ extern "C" __global__ void repro_mark_consensus() {}
 extern "C" __global__ void repro_mark_optimizer() {}
 extern "C" __global__ void repro_mark_state_write() {}
 extern "C" __global__ void repro_mark_step_end() {}
+// the model's sublayers (repro_torch/models/model.py): each attention
+// sublayer by its layer's kind, each MoE sublayer, the final norm and LM
+// head; launched again by the remat recompute inside the backward
+extern "C" __global__ void repro_mark_attn_sliding() {}
+extern "C" __global__ void repro_mark_attn_full() {}
+extern "C" __global__ void repro_mark_moe() {}
+extern "C" __global__ void repro_mark_head() {}
 
-// phase: the index of its name in repro_torch.kernels.marks.PHASES
+// phase: the index of its name in repro_torch.kernels.marks.PHASES +
+// SUBPHASES
 extern "C" int repro_mark(int phase, cudaStream_t stream) {
   switch (phase) {
     case 0: repro_mark_forward<<<1, 1, 0, stream>>>(); break;
@@ -31,6 +39,10 @@ extern "C" int repro_mark(int phase, cudaStream_t stream) {
     case 3: repro_mark_optimizer<<<1, 1, 0, stream>>>(); break;
     case 4: repro_mark_state_write<<<1, 1, 0, stream>>>(); break;
     case 5: repro_mark_step_end<<<1, 1, 0, stream>>>(); break;
+    case 6: repro_mark_attn_sliding<<<1, 1, 0, stream>>>(); break;
+    case 7: repro_mark_attn_full<<<1, 1, 0, stream>>>(); break;
+    case 8: repro_mark_moe<<<1, 1, 0, stream>>>(); break;
+    case 9: repro_mark_head<<<1, 1, 0, stream>>>(); break;
     default: return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());

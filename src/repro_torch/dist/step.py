@@ -654,7 +654,7 @@ def make_serve_step(cfg, mesh=None):
     specialization for them."""
     layout = _serve_layout(mesh)
     if not cfg.decode_supported:
-        raise ValueError(f"{cfg.name} is encoder-only: no serve step")
+        raise ValueError(f"{cfg.name}: {cfg.decode_refusal}")
     tp = _serve_shard(cfg, layout)
     if tp is not None:
         return recompile_lib.register("dist.serve_step", functools.partial(

@@ -22,7 +22,9 @@ reuses the compiled program. A `Program` does the same with
     allocates from a private pool, which cannot take them), so a first
     call's reserved memory is an eager step's, not twice its
     temporaries; then the function is captured into a graph over the
-    same buffers, which records its launches without executing them;
+    same buffers, which records its launches without executing them (a
+    capture that runs out of memory is made once more with the
+    allocator's segments growing in place, `_grow_segments`);
   * a later call copies its inputs into the static buffers and replays
     the graph: one launch in place of thousands of dispatches.
 
@@ -71,7 +73,8 @@ static buffers of its (specialization, bound pointers), runs the function
 eagerly on them and clones the outputs as a replay would, so the CPU
 exercises the binding, copying and cloning of the card. `eager()`, the counterpart of
 `jax.disable_jit`, runs programs as plain calls and records no
-specialization. There is no fallback: a capture that fails raises.
+specialization. There is no fallback: a capture that fails, other than
+by running out of memory the first time, raises.
 
 A Program called while another Program's function runs (its first run,
 its capture, or its CPU run) is a plain call of its function: it records
@@ -84,6 +87,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import os
 import threading
 import time
 import weakref
@@ -97,6 +101,8 @@ from repro_torch.obs import core as obs_lib
 _EAGER = [0]
 _SCALARS = {bool: torch.bool, int: torch.int64, float: torch.float32}
 _SIDE_STREAMS: dict = {}
+# whether _grow_segments has turned on segments that grow in place
+_GROWING = [False]
 # cached bytes above which a first call hands the allocator's cache back;
 # below it what a side-stream run or a capture holds twice is small, and
 # `empty_cache` (a device synchronization and a cudaFree per segment)
@@ -170,6 +176,31 @@ def _release_cache(device: torch.device) -> None:
               - torch.cuda.memory_allocated(device))
     if cached > _CACHE_SLACK:
         torch.cuda.empty_cache()
+
+
+def _grow_segments() -> bool:
+    """Let the allocator's segments grow in place (`expandable_segments`),
+    unless they already do or PYTORCH_CUDA_ALLOC_CONF names the setting;
+    whether this call turned them on. A capture draws its temporaries
+    from the graph's private pool, which cannot hand a freed segment back
+    while it captures: with fixed-size segments a step whose forward and
+    backward free blocks of many sizes (Mellum2's at 8,192 positions:
+    60.8 GiB reserved against 39.6 GiB allocated at the optimizer) runs
+    out of memory at the optimizer's leaf-sized outputs, where segments
+    that grow in place keep what is reserved near what is allocated. They
+    map their memory a piece at a time, which costs a step that fits
+    without them seconds of set-up, so a capture turns them on only once
+    it has run out of memory."""
+    if _GROWING[0] or "expandable_segments" in os.environ.get(
+            "PYTORCH_CUDA_ALLOC_CONF", ""):
+        return False
+    _GROWING[0] = True
+    # the accelerator-wide setter where this torch has it (the CUDA one
+    # warns that it is deprecated there)
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                     None) or torch.cuda.memory._set_allocator_settings
+    setter("expandable_segments:True")
+    return True
 
 
 def _drop(program_ref, key) -> None:
@@ -346,7 +377,19 @@ class Program:
         with _setup_piece(self.name, "release_cache"):
             _release_cache(device)
         with _setup_piece(self.name, "capture"):
-            self._capture(entry, spec, full, bound, side)
+            try:
+                self._capture(entry, spec, full, bound, side)
+                again = False
+            except torch.OutOfMemoryError:
+                if not _grow_segments():
+                    raise
+                again = True
+            if again:
+                # the failed capture's graph and temporaries died with its
+                # frames; its pool's segments go back before the second
+                gc.collect()
+                torch.cuda.empty_cache()
+                self._capture(entry, spec, full, bound, side)
         current.wait_stream(side)
         return out
 

@@ -38,7 +38,7 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     by default). Returns the (batch, gen) generated tokens; a `timings`
     dict gets the prefill's and the decode loop's seconds."""
     if not cfg.decode_supported:
-        raise SystemExit(f"{cfg.name} is encoder-only: no decode")
+        raise SystemExit(f"{cfg.name}: {cfg.decode_refusal}")
     device = resolve_device(device)
     model_lib.disable_tf32()
     params = model_lib.init_params(seed, cfg, device)

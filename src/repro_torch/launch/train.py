@@ -106,7 +106,7 @@ def train(cfg, *, steps: int, batch_size: int, seq_len: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="yi-6b", choices=configs.ARCH_NAMES)
+    ap.add_argument("--arch", default="yi-6b", choices=configs.ALL_NAMES)
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale variant (CPU-friendly)")
     ap.add_argument("--steps", type=int, default=100)

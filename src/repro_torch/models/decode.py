@@ -20,6 +20,8 @@ over the layers here. Cache kinds per block family:
                  and the sLSTM state "s_c", "s_n", "s_h" (L, B, d).
   moe          — the KV cache only (experts are stateless).
   encoder      — no decode (raises; callers consult cfg.decode_supported).
+  Layers of mixed attention (`cfg.layer_types` with full and sliding
+  layers) have no decode path either: it raises.
 
 `pos` is a per-slot (B,) counter, so the continuous-batching engine
 (`repro_torch.serve`) refills finished slots independently.
@@ -77,6 +79,13 @@ class DecodeState(NamedTuple):
 # ---------------------------------------------------------------------------
 # State construction
 # ---------------------------------------------------------------------------
+def _require_decode(cfg: ModelConfig) -> None:
+    """Raises ValueError for a model with no decode path: an encoder, or
+    layers of mixed attention, whose caches would differ by layer."""
+    if not cfg.decode_supported:
+        raise ValueError(f"{cfg.name}: {cfg.decode_refusal}")
+
+
 def cache_len(cfg: ModelConfig, max_seq: int) -> int:
     return cfg.decode_cache_len(max_seq)
 
@@ -85,8 +94,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=None, device=None) -> DecodeState:
     """Zero caches sized for decoding up to `max_seq` total positions, on
     `device` (`cuda` unless asked for the CPU)."""
-    if not cfg.decode_supported:
-        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    _require_decode(cfg)
     device = resolve_device(device)
     dt = dtype or cfg.compute_dtype
     f32 = torch.float32
@@ -169,8 +177,9 @@ def _attn_decode(cfg: ModelConfig, p: dict, cache: dict, h: torch.Tensor,
     k = k.reshape(b, 1, cfg.num_kv_heads, cfg.dh)
     v = v.reshape(b, 1, cfg.num_kv_heads, cfg.dh)
     positions = pos[:, None]                     # (B, 1) per-slot positions
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    freqs, scale = L.rope_table(cfg.dh, cfg.layer_rope(), h.device)
+    q = L.apply_rope(q, positions, freqs, scale)
+    k = L.apply_rope(k, positions, freqs, scale)
     rows = torch.arange(b, device=h.device)
     slot = torch.remainder(pos, c).long()        # (B,) ring slots
     kv_len = torch.clamp_max(pos + 1, c)         # (B,) valid lengths
@@ -256,8 +265,7 @@ def decode_step(cfg: ModelConfig, params: dict, state: DecodeState,
     caches of `state` are updated in place (see the module docstring).
     With `tp` (a `dist.sharding.ModelShard`), `params` are this rank's
     slices and the step runs as tensor parallelism over "model"."""
-    if not cfg.decode_supported:
-        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    _require_decode(cfg)
     h = L.embed(tokens, params["embed"], tp).to(cfg.compute_dtype)
     c = _cache_len_of(state)
     leaves, spec = tree_lib.flatten(params["blocks"])
@@ -413,8 +421,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     same `kvquant.encode_entry` as decode. The recurrent families (hybrid,
     xlstm_pair) step `decode_step` token by token, as the reference does,
     which keeps the prefix contract structural."""
-    if not cfg.decode_supported:
-        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    _require_decode(cfg)
     dev = tokens.device
     b, s = tokens.shape
     state = init_decode_state(cfg, b, max_seq, device=dev)

@@ -8,6 +8,7 @@ online softmax rather than calling `scaled_dot_product_attention`.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -44,24 +45,65 @@ def linear(x: torch.Tensor, w: torch.Tensor, tp=None,
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
-def rope_frequencies(head_dim: int, theta: float,
-                     device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    # torch.full, not torch.tensor: a host-to-device copy would make every
-    # call wait for the card to drain its queue
-    return 1.0 / torch.pow(
-        torch.full((), theta, dtype=torch.float32, device=device), exps)
+def yarn_range(head_dim: int, rope) -> tuple:
+    """(low, high): the dim pairs between which YaRN's ramp runs, from the
+    number of rotations β_fast and β_slow make over the original length
+    (HF's `find_correction_range` with its default `truncate`: low
+    floored, high ceiled), clamped to [0, head_dim − 1]."""
+    def dim_of(rotations):
+        return (head_dim * math.log(rope.original_max_position
+                                    / (rotations * 2 * math.pi))
+                / (2 * math.log(rope.theta)))
+
+    low = math.floor(dim_of(rope.beta_fast))
+    high = math.ceil(dim_of(rope.beta_slow))
+    return max(low, 0), min(high, head_dim - 1)
+
+
+def yarn_attention_factor(rope) -> float:
+    """The factor YaRN multiplies cos and sin by: the given one, else
+    0.1·ln(factor) + 1."""
+    if rope.attention_factor is not None:
+        return float(rope.attention_factor)
+    return 0.1 * math.log(rope.factor) + 1.0 if rope.factor > 1 else 1.0
+
+
+def rope_table(head_dim: int, rope, device=None) -> tuple:
+    """(frequencies (dh/2,) f32, scale) of a layer's `RopeSpec`, computed
+    in float64 and rounded once: the plain θ^(−2i/dh) and no scale; with
+    YaRN (`rope.factor`), each frequency blended between f_i / factor
+    (interpolated, below pair `low`) and f_i (kept, above `high`) by a
+    linear ramp, as HF's `_compute_yarn_parameters` does, and the scale of
+    `yarn_attention_factor`. Rounded once, the table is the formula's to
+    half an ulp: at 8,192 positions an ulp of a frequency near 1 turns an
+    angle by up to 5e-4 rad, which a power taken in f32 can."""
+    f64 = torch.float64
+    exps = torch.arange(0, head_dim, 2, dtype=f64, device=device) / head_dim
+    freqs = 1.0 / torch.pow(
+        torch.full((), rope.theta, dtype=f64, device=device), exps)
+    if rope.factor is None:
+        return freqs.to(torch.float32), None
+    low, high = yarn_range(head_dim, rope)
+    if low == high:
+        high += 0.001                   # HF's guard against a zero width
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=f64,
+                                     device=device) - low) / (high - low),
+                       0.0, 1.0)
+    blended = freqs / rope.factor * ramp + freqs * (1.0 - ramp)
+    return blended.to(torch.float32), yarn_attention_factor(rope)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, dh); positions: (B, S) or (S,)."""
-    dh = x.shape[-1]
-    freqs = rope_frequencies(dh, theta, x.device)            # (dh/2,)
+               freqs: torch.Tensor,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S) or (S,); `freqs` (dh/2,) the
+    layer's table (`rope_table`). `scale` multiplies cos and sin (YaRN's
+    attention factor: q·k then scales by its square)."""
     angles = positions[..., None].to(torch.float32) * freqs  # (B, S, dh/2)
     cos = torch.cos(angles)[..., None, :]                    # (B, S, 1, dh/2)
     sin = torch.sin(angles)[..., None, :]
+    if scale is not None:
+        cos, sin = cos * scale, sin * scale
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -71,17 +113,48 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Blockwise attention (online softmax)
 # ---------------------------------------------------------------------------
 NEG_INF = -1e30
+BLOCK_Q, BLOCK_KV = 512, 1024
+
+
+def block_pairs(sq: int, skv: int, *, causal: bool,
+                window: Optional[int] = None, block_q: int = BLOCK_Q,
+                block_kv: int = BLOCK_KV) -> list:
+    """Per query block, the kv blocks `blockwise_attention` computes: those
+    in which some real query (position < sq) may see some real key
+    (position < skv), query i seeing key j when j ≤ i (causal) and
+    j > i − window (windowed). Decided from the static sizes alone, so a
+    captured graph holds only these pairs. A skipped pair's scores are all
+    masked: for every real query it would add exact zeros (after a pair
+    that has a key) or be wiped by the first pair that has one (corr = 0),
+    so skipping it leaves every real row's output as it was."""
+    nq, nkv = -(-sq // block_q), -(-skv // block_kv)
+    out = []
+    for iq in range(nq):
+        q_lo, q_hi = iq * block_q, min((iq + 1) * block_q, sq) - 1
+        keep = []
+        for ikv in range(nkv):
+            kv_lo, kv_hi = ikv * block_kv, min((ikv + 1) * block_kv, skv) - 1
+            if causal and kv_lo > q_hi:
+                continue
+            if window is not None and kv_hi <= q_lo - window:
+                continue
+            keep.append(ikv)
+        out.append(keep)
+    return out
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, window: Optional[int] = None,
-                        block_q: int = 512,
-                        block_kv: int = 1024) -> torch.Tensor:
+                        block_q: int = BLOCK_Q,
+                        block_kv: int = BLOCK_KV) -> torch.Tensor:
     """Online-softmax attention, GQA-native.
 
     q: (B, Sq, H, dh); k, v: (B, Skv, K, dh) with H % K == 0. Queries are
     grouped (B, K, G, bq, dh) so KV is never repeated; at most
-    (block_q, block_kv) scores per head exist at a time."""
+    (block_q, block_kv) scores per head exist at a time. Of the (q, kv)
+    block pairs only those `block_pairs` keeps are computed: a causal
+    layer's upper triangle and a windowed layer's blocks behind its window
+    are skipped."""
     b, sq, h, dh = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -102,6 +175,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     dev = q.device
     outs = []
+    pairs = block_pairs(sq, skv, causal=causal, window=window,
+                        block_q=block_q, block_kv=block_kv)
     for iq in range(nq):
         qblk = qb[iq]
         q_pos = iq * block_q + torch.arange(block_q, device=dev)
@@ -110,7 +185,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.full((b, kh, g, block_q), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, kh, g, block_q), dtype=torch.float32, device=dev)
-        for ikv in range(nkv):
+        for ikv in pairs[iq]:
             kv_pos = ikv * block_kv + torch.arange(block_kv, device=dev)
             s = qblk @ kb[ikv][:, :, None]         # (B, K, G, bq, bkv)
             mask = kv_pos[None, :] < skv           # kv padding

@@ -37,8 +37,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs as obs_lib
 from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
+from repro_torch.kernels import marks as marks_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -46,6 +48,22 @@ from repro_torch.models import xlstm as xlstm_lib
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeSpec:
+    """One layer type's rotary table, as HF's `rope_parameters` gives it:
+    θ, and with `factor` set YaRN's rescaling (rope_type "yarn": the
+    original length the model was trained at, the rotation counts β_fast
+    and β_slow that bound the ramp, the attention factor, by default
+    0.1·ln(factor) + 1; the ramp's low end floored and its high end
+    ceiled, HF's default `truncate`). `layers.rope_table` builds it."""
+    theta: float
+    factor: Optional[float] = None
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: Optional[float] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +81,11 @@ class ModelConfig:
     attention_kind: str = "full"        # full | sliding
     window: int = 4096
     rope_theta: float = 500000.0
+    # per layer "full" | "sliding" (None: every layer `attention_kind`),
+    # and a RopeSpec per layer type ((type, RopeSpec), ...; a type not
+    # named takes the plain table of `rope_theta`)
+    layer_types: Optional[tuple] = None
+    rope_by_type: Optional[tuple] = None
     # moe
     num_experts: int = 0
     top_k: int = 2
@@ -116,20 +139,54 @@ class ModelConfig:
     def compute_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 
+    def layer_kind(self, layer: int = 0) -> str:
+        """Layer `layer`'s attention: "full" or "sliding"."""
+        if self.layer_types is None:
+            return self.attention_kind
+        return self.layer_types[layer]
+
+    @property
+    def mixed_layers(self) -> bool:
+        """Whether the layers differ in their attention."""
+        return self.layer_types is not None and len(
+            set(self.layer_types)) > 1
+
+    @property
+    def decode_refusal(self) -> Optional[str]:
+        """Why the model has no decode step, or None."""
+        if self.block == "encoder":
+            return "encoder-only: no decode step"
+        if self.mixed_layers:
+            return ("mixed layer types (full and sliding attention): no "
+                    "decode path")
+        return None
+
     @property
     def decode_supported(self) -> bool:
-        return self.block != "encoder"
+        return self.decode_refusal is None
+
+    @property
+    def all_sliding(self) -> bool:
+        return all(self.layer_kind(i) == "sliding"
+                   for i in range(self.num_scanned))
 
     @property
     def subquadratic(self) -> bool:
-        return (self.block in ("xlstm_pair",)
-                or self.attention_kind == "sliding")
+        return self.block in ("xlstm_pair",) or self.all_sliding
 
-    def window_or_none(self) -> Optional[int]:
-        return self.window if self.attention_kind == "sliding" else None
+    def window_or_none(self, layer: int = 0) -> Optional[int]:
+        return self.window if self.layer_kind(layer) == "sliding" else None
+
+    def layer_rope(self, layer: int = 0) -> RopeSpec:
+        """Layer `layer`'s rotary table."""
+        kind = self.layer_kind(layer)
+        for name, spec in self.rope_by_type or ():
+            if name == kind:
+                return spec
+        return RopeSpec(self.rope_theta)
 
     def decode_cache_len(self, seq_len: int) -> int:
-        if self.attention_kind == "sliding":
+        if self.all_sliding:
             return min(self.window, seq_len)
         return seq_len
 
@@ -269,39 +326,59 @@ def active_param_count(cfg: ModelConfig) -> int:
 # Block forward (training / prefill share this; decode has its own path)
 # ---------------------------------------------------------------------------
 def _attn_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
-              positions: torch.Tensor):
+              positions: torch.Tensor, layer: int = 0):
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.dh)
     k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.dh)
     v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.dh)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    freqs, scale = L.rope_table(cfg.dh, cfg.layer_rope(layer), x.device)
+    q = L.apply_rope(q, positions, freqs, scale)
+    k = L.apply_rope(k, positions, freqs, scale)
     return q, k, v
 
 
+def _count_pairs(kind: str, sq: int, skv: int, causal: bool,
+                 window: Optional[int]) -> None:
+    """Obs counters of one attention call's (q, kv) block pairs, computed
+    and skipped, by layer kind (host ints from the shapes)."""
+    if not obs_lib.enabled():
+        return
+    pairs = L.block_pairs(sq, skv, causal=causal, window=window)
+    done = sum(len(kv) for kv in pairs)
+    every = len(pairs) * -(-skv // L.BLOCK_KV)
+    obs_lib.counter(f"attn.{kind}.pairs_computed", done)
+    obs_lib.counter(f"attn.{kind}.pairs_skipped", every - done)
+
+
 def _self_attention(cfg: ModelConfig, p: dict, h: torch.Tensor,
-                    positions: torch.Tensor):
+                    positions: torch.Tensor, layer: int = 0):
     """(attention output, (k, v)) of one layer."""
     b, s, _ = h.shape
     x = L.rmsnorm(h, p["attn_norm"], cfg.norm_eps)
-    q, k, v = _attn_qkv(cfg, p, x, positions)
-    o = L.blockwise_attention(q, k, v, causal=cfg.causal,
-                              window=cfg.window_or_none())
+    q, k, v = _attn_qkv(cfg, p, x, positions, layer)
+    window = cfg.window_or_none(layer)
+    _count_pairs(cfg.layer_kind(layer), s, s, cfg.causal, window)
+    o = L.blockwise_attention(q, k, v, causal=cfg.causal, window=window)
     return o.reshape(b, s, cfg.q_dim) @ p["wo"], (k, v)
 
 
 def block_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
-                  positions: torch.Tensor, collect_kv: bool = False):
-    """One scanned unit on one layer's weights `p`. Returns (h, aux_loss,
-    kv): kv is the layer's post-RoPE (k, v), (B, S, K, dh) each, with
-    `collect_kv` on a family with attention (prefill), else None."""
+                  positions: torch.Tensor, collect_kv: bool = False,
+                  layer: int = 0):
+    """One scanned unit on the weights `p` of layer `layer` (its window
+    and RoPE table). Returns (h, aux_loss, kv): kv is the layer's post-RoPE
+    (k, v), (B, S, K, dh) each, with `collect_kv` on a family with
+    attention (prefill), else None. Marks `attn_<kind>` and `moe` start
+    the attention and MoE sublayers on the card (`kernels.marks`)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     kv = None
     if cfg.block in ("attn_mlp", "attn_moe", "attn_moe_dense", "encoder"):
-        attn_out, kv = _self_attention(cfg, p, h, positions)
+        marks_lib.sublayer(f"attn_{cfg.layer_kind(layer)}", h)
+        attn_out, kv = _self_attention(cfg, p, h, positions, layer)
         h = h + attn_out
     if cfg.block == "hybrid":
-        attn_out, kv = _self_attention(cfg, p, h, positions)
+        marks_lib.sublayer(f"attn_{cfg.layer_kind(layer)}", h)
+        attn_out, kv = _self_attention(cfg, p, h, positions, layer)
         x = L.rmsnorm(h, p["attn_norm"], cfg.norm_eps)
         scan_fn = (ssm_lib.mamba_assoc_scan if cfg.ssm_scan == "associative"
                    else ssm_lib.mamba_scan)
@@ -314,6 +391,7 @@ def block_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
         x = L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps)
         h = h + L.gelu_mlp(x, p["w_up"], p["w_down"])
     if cfg.block in ("attn_moe", "attn_moe_dense"):
+        marks_lib.sublayer("moe", h)
         x = L.rmsnorm(h, p["moe_norm"], cfg.norm_eps)
         moe_out, moe_aux = moe_lib.moe_ffn(
             x, p["router"], p["e_gate"], p["e_up"], p["e_down"],
@@ -376,19 +454,20 @@ def forward_hidden(cfg: ModelConfig, params: dict, h: torch.Tensor,
     jax.checkpoint)."""
     leaves, spec = tree_lib.flatten(params["blocks"])
 
-    def layer(hh, *weights):
+    def layer(i, hh, *weights):
         hh, a, _ = block_forward(cfg, tree_lib.unflatten(spec, weights), hh,
-                                 positions)
+                                 positions, layer=i)
         return hh, a
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_scanned):
         weights = [x[i] for x in leaves]
         if cfg.remat and torch.is_grad_enabled():
-            h, a = checkpoint(layer, h, *weights, use_reentrant=False)
+            h, a = checkpoint(layer, i, h, *weights, use_reentrant=False)
         else:
-            h, a = layer(h, *weights)
+            h, a = layer(i, h, *weights)
         aux = aux + a
+    marks_lib.sublayer("head", h)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps), aux
 
 

@@ -16,6 +16,10 @@ that the capacity counts the global batch), and each rank runs the
 capacity buffers of its own experts (expert-parallel, when E divides) or
 its columns of d_ff; one all-reduce combines the ranks' outputs.
 
+With an obs session on, each routing counts its capacity C
+(`moe.capacity`) and the (E, C) slots of its buffer (`moe.slots`), host
+ints from the shapes.
+
 Routing is discrete: a last-bit change in the router softmax could flip an
 expert. Top-k keeps `jax.lax.top_k`'s tie order (the lower index first)
 through a stable descending sort, never `torch.topk`.
@@ -25,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs as obs_lib
 from repro_torch.models.layers import linear
 
 
@@ -55,6 +60,8 @@ def route(flat: torch.Tensor, router: torch.Tensor, k: int,
     n = every.numel()
     flat_e = every.reshape(n)                                 # assignments
     capacity = max(1, int(capacity_factor * every.shape[0] * k / e))
+    obs_lib.counter("moe.capacity", capacity)
+    obs_lib.counter("moe.slots", e * capacity)
     # rank of each assignment within its expert (stable sort by expert id)
     order = torch.sort(flat_e, stable=True).indices
     # bincount's CUDA kernel reads the largest id back to the host, which a

@@ -20,11 +20,14 @@ Disabled (the default), every instrumentation call is a global load + an
 early return. The instrumented layers (`fed.rounds`, `fed.server`,
 `fed.mesh`, `dist.step`, `kernels.ops`, `serve.engine`,
 `serve.prefixcache`) emit the reference's span, counter and program names
-with its attribute keys, so one report reads either package. Three
+with its attribute keys, so one report reads either package. Four
 departures from the reference: `kernels.dispatch` counts every launch
 (eager dispatch; the reference counts once per trace); the summary's
-`jax_trace` block is `profiler_trace`; and costs exist only for the
-kernels (eager torch has no compiler cost analysis).
+`jax_trace` block is `profiler_trace`; costs exist only for the
+kernels (eager torch has no compiler cost analysis); and the model
+counts what the reference does not, each attention call's block pairs
+computed and skipped (`attn.<kind>.pairs_computed`, `.pairs_skipped`)
+and each routing's capacity (`moe.capacity`, `moe.slots`).
 """
 from repro_torch.obs import (costs, history, recompile, regress, report,
                              sinks, trace)

@@ -152,7 +152,7 @@ class Engine:
 
     def __init__(self, cfg, params, config: ServeConfig, device=None):
         if not cfg.decode_supported:
-            raise ValueError(f"{cfg.name} is encoder-only")
+            raise ValueError(f"{cfg.name}: {cfg.decode_refusal}")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "

@@ -714,10 +714,15 @@ def _schema(e) -> tuple:
     return (e["type"], e["name"], tuple(sorted(keys or {})))
 
 
+# the model's counters of attention block pairs and MoE capacity, which
+# the reference has not (a departure `repro_torch.obs` names)
+PORT_ONLY = ("attn.", "moe.")
+
+
 def _split(events):
     kernels = [e for e in events if e["name"].startswith("kernels.")]
-    return [e for e in events if not e["name"].startswith("kernels.")], \
-        kernels
+    return [e for e in events
+            if not e["name"].startswith(("kernels.",) + PORT_ONLY)], kernels
 
 
 @pytest.mark.parametrize("workload", sorted(WORKLOADS))
@@ -726,6 +731,10 @@ def test_event_sequence_equals_the_reference(runs, workload):
     ours, theirs = _split(port_events)[0], _split(ref_events)[0]
     assert [_schema(e) for e in ours] == [_schema(e) for e in theirs]
     assert ours, "the workload emitted nothing"
+    assert not [e for e in ref_events if e["name"].startswith(PORT_ONLY)]
+    if workload != "fed":       # the model's forward counts its pairs
+        assert {e["name"] for e in port_events} >= {
+            "attn.full.pairs_computed", "attn.full.pairs_skipped"}
 
 
 @pytest.mark.parametrize("workload", sorted(WORKLOADS))

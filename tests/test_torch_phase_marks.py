@@ -82,13 +82,14 @@ def test_mark_on_the_cpu_builds_and_launches_nothing(monkeypatch):
 
 
 def test_mark_kernels_follow_the_phase_order():
-    """csrc/marks.cu launches PHASES[i]'s kernel for index i, under the
-    name the readers look for."""
+    """csrc/marks.cu launches PHASES[i]'s kernel for index i, then the
+    sublayers' after them, under the names the readers look for."""
     src = (_build.CSRC / "marks.cu").read_text()
     cases = re.findall(r"case (\d+): (\w+)<<<1, 1, 0, stream>>>", src)
+    every = marks.PHASES + marks.SUBPHASES
     assert [(int(i), k) for i, k in cases] == [
-        (i, marks.kernel_name(p)) for i, p in enumerate(marks.PHASES)]
-    for p in marks.PHASES:
+        (i, marks.kernel_name(p)) for i, p in enumerate(every)]
+    for p in every:
         assert f'extern "C" __global__ void {marks.kernel_name(p)}()' in src
     assert "marks" in _build.SOURCES
     assert list(_build._SIGNATURES["marks"]) == ["repro_mark"]
